@@ -1,0 +1,41 @@
+"""Model configuration dataclasses: own copy of the reference's
+``HLAConfig``/``ModelConfig`` fields that the port reads.  The chunk width
+is not among them: the prefill kernel picks its own (``kernels.hla2_chunk.W``),
+and outputs do not depend on it."""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class HLAConfig:
+    """Options for the paper's mixer."""
+
+    normalize: bool = False  # paper default: unnormalized
+    decay: str = "learned"  # none | fixed | learned  (per-head sigmoid)
+    fixed_gamma: float = 0.99
+    lam: float = 0.0  # ridge (Alg 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0  # 0 => d_model // n_heads
+    mixer: str = "hla2"  # the registered SequenceOp; the MLP is SwiGLU
+    hla: HLAConfig = dataclasses.field(default_factory=HLAConfig)
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"  # activation/compute dtype; parameters are fp32
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // max(1, self.n_heads))
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
