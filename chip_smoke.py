@@ -5,17 +5,24 @@
 
 Phases, each of which raises on failure (exit code nonzero, no result line):
 
-1. build the hand-written kernels from ``src/repro_torch/csrc`` (one nvcc
-   per source, all at once) and print nvcc's register/shared-memory report;
+1. build the hand-written kernels from ``src/repro_torch/csrc`` (three:
+   the chunkwise forward, the decode step and the chunkwise backward; one
+   nvcc per source, all at once) and print nvcc's register report;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (hla-1b rows, head dim 128);
-3. check the port against its plain path on a small model (card vs CPU),
-   and at full width that prefill(L) + one decode step equals
+   main paths' shapes (hla-1b rows, head dim 128): the forward and the
+   step at serving shapes, the forward's checkpoints and the backward at
+   the train phase's (32 rows x 2048 tokens);
+3. check the port against its plain path on a small model (card vs CPU):
+   prefill + decode logits, and the training loss and every parameter's
+   gradient; and at full width that prefill(L) + one decode step equals
    prefill(L + 1) for hla-1b (24 layers, seeded random weights, fp32);
 4. serve 8 hla-1b requests through the port's ``Engine`` (bf16, 4 slots),
    count the kernel launches of that run and time the chunk kernel's
    launches in it;
-5. time each kernel and its plain version at the main path's shapes.
+5. train hla-1b at full width and depth for 5 AdamW steps on one repeated
+   2 x 2048 batch, count the kernel launches of that run (24 forward + 24
+   backward per step, no plain version) and check the loss falls;
+6. time each kernel and its plain version at its path's shapes.
 
 The second-to-last line is the ``kernels`` JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -48,9 +55,14 @@ TOL_FP32 = 1e-4
 TOL_BF16 = 1e-2
 # logits after 24 fp32 layers, kernels vs kernels in two summation orders
 TOL_LOGITS = 2e-3
+# dgamma of a row sums the derivative of every decay power over every chunk
+# (n * 64 terms of both signs): summation order moves it more than one
+# output element, so its tolerance is wider
+TOL_DGAMMA = 1e-3
 
 CHUNK_SRC = "src/repro_torch/csrc/hla2_chunk_fwd.cu"
 STEP_SRC = "src/repro_torch/csrc/hla2_step.cu"
+BWD_SRC = "src/repro_torch/csrc/hla2_chunk_bwd.cu"
 
 
 # the card's name and power limit, printed beside every number
@@ -140,6 +152,60 @@ def check_chunk(device, rows=16, d=128, ns=(512, 300)):
     return main_abs
 
 
+def check_chunk_bwd(device, rows=32, d=128, ns=(2048, 300), small=False):
+    """hla2_chunk_fwd's checkpoints and hla2_chunk_bwd vs their plain
+    versions, at the train phase's rows.  ``small`` runs the normalize and
+    lam cases (d = 16).  Returns the max absolute errors of the main-path
+    case (bf16, first n, gamma): of dq/dk/dv, and of the forward's output
+    and checkpoints."""
+    import torch
+
+    from repro_torch.kernels.hla2_chunk import (
+        hla2_chunk_bwd, hla2_chunk_bwd_plain, hla2_chunk_fwd,
+        hla2_chunk_fwd_plain)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    bf, f32 = torch.bfloat16, torch.float32
+    if small:
+        cases = [(f32, n, True, norm, lam) for n in ns
+                 for norm, lam in ((True, 0.0), (False, 0.3), (True, 0.3))]
+        cases.append((bf, ns[0], False, True, 0.3))
+    else:
+        cases = [(dt, n, True, False, 0.0) for dt in (bf, f32) for n in ns]
+        cases += [(dt, ns[-1], False, False, 0.0) for dt in (bf, f32)]
+    main_abs = None
+    for dt, n, use_gamma, norm, lam in cases:
+        q, k, v, g = _inputs(gen, rows, n, d, d, dt, device, positive=norm)
+        g = g if use_gamma else None
+        do = torch.randn(v.shape, generator=gen, device=device).to(dt)
+        kw = dict(normalize=norm, lam=lam)
+        o_k, _, ck_k = hla2_chunk_fwd(q, k, v, g, save_chunk_states=True,
+                                      **kw)
+        o_p, _, ck_p = hla2_chunk_fwd_plain(q, k, v, g,
+                                            save_chunk_states=True, **kw)
+        got = hla2_chunk_bwd(q, k, v, g, do, ck_k, **kw)
+        want = hla2_chunk_bwd_plain(q, k, v, g, do, ck_p, **kw)
+        e_ck = max(rel_err(a, b) for a, b in zip(ck_k, ck_p))
+        e_o = rel_err(o_k, o_p)
+        e_x = max(rel_err(a, b) for a, b in zip(got[:3], want[:3]))
+        e_g = rel_err(got[3], want[3]) if use_gamma else 0.0
+        tol = TOL_BF16 if dt == bf else TOL_FP32
+        log(f"hla2_chunk_bwd {str(dt)[6:]} rows={rows} n={n} d={d} "
+            f"gamma={use_gamma} normalize={norm} lam={lam}: dq/dk/dv rel "
+            f"{e_x:.2e} (tol {tol:.0e}), dgamma rel {e_g:.2e} (tol "
+            f"{TOL_DGAMMA:.0e}), forward o rel {e_o:.2e} (tol {tol:.0e}), "
+            f"checkpoints rel {e_ck:.2e} (tol {TOL_FP32:.0e})")
+        if not (e_x <= tol and e_g <= TOL_DGAMMA and e_ck <= TOL_FP32
+                and e_o <= tol):
+            raise AssertionError("hla2_chunk_bwd or the checkpoints disagree "
+                                 "with the plain versions")
+        if main_abs is None:
+            main_abs = (max(abs_err(a, b) for a, b in zip(got[:3], want[:3])),
+                        max(abs_err(a, b) for a, b in
+                            zip((o_k,) + ck_k, (o_p,) + ck_p)))
+    return main_abs
+
+
 def check_step(device, rows=64, d=128, n_prior=300):
     """hla2_step vs hla2_step_plain after a prefill, both in place.  Returns
     the max absolute output error of the main-path case (bf16)."""
@@ -212,6 +278,53 @@ def check_small_model(device):
         f"plain logits rel {e:.2e} (tol {TOL_FP32:.0e})")
     if not e <= TOL_FP32:
         raise AssertionError("the model on the card disagrees with the CPU")
+
+
+def _loss_grads(params, batch, cfg):
+    """The model's loss and its gradient for every parameter leaf (in
+    ``leaf_paths`` order)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.param import leaf_paths, tree_map
+
+    live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    loss, _ = lm.lm_loss(live, batch["tokens"], batch["labels"], cfg)
+    flat = [x for _, x in leaf_paths(live)]
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def check_small_train(device):
+    """Reduced hla-1b (fp32): the loss and every parameter's gradient on
+    ``device`` (forward and backward kernels) vs on the CPU (plain
+    versions), same weights and batch."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params, leaf_paths
+
+    cfg = get_config("hla-1b", reduced=True)
+    p_cpu = init_params(lm.lm_specs(cfg), 0, "cpu")
+    host = SyntheticStream(DataConfig(cfg.vocab, 150, 2, seed=6)).batch(0)
+    out = []
+    for p, dev in ((_to(p_cpu, device), device), (p_cpu, "cpu")):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        loss, grads = _loss_grads(p, batch, cfg)
+        out.append((loss.cpu(), [g.cpu() for g in grads]))
+    (l_k, g_k), (l_p, g_p) = out
+    e_l = rel_err(l_k, l_p)
+    errs = {"/".join(path): rel_err(a, b) for (path, _), a, b in
+            zip(leaf_paths(p_cpu), g_k, g_p)}
+    worst = max(errs, key=errs.get)
+    log(f"reduced hla-1b fp32 train loss, 2 x 150 tokens: {device} kernels "
+        f"vs cpu plain: loss {float(l_k):.6f} rel {e_l:.2e}, gradients of "
+        f"{len(errs)} leaves rel <= {errs[worst]:.2e} ({worst}) (tol "
+        f"{TOL_FP32:.0e})")
+    if not (e_l <= TOL_FP32 and errs[worst] <= TOL_FP32):
+        raise AssertionError("the model's gradients on the card disagree "
+                             "with the CPU")
 
 
 def _to(tree, device):
@@ -336,7 +449,88 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
 
 
 # --------------------------------------------------------------------------
-# phase 5: timing
+# phase 5: training
+# --------------------------------------------------------------------------
+
+
+def train(device, steps=5, batch=2, seq=2048):
+    """AdamW steps of full-width hla-1b (24 layers, bf16 activations, fp32
+    parameters and moments) on one repeated synthetic batch.  Returns the
+    launch counts of the run and its summary numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import hla2_chunk
+    from repro_torch.kernels.ops import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+    from repro_torch.optim import adamw
+
+    cfg = get_config("hla-1b")
+    params = init_params(lm.lm_specs(cfg), 0, device)
+    # with one warmup step, the default lr 3e-4 moves every weight by ~lr
+    # at once: on this random-weight model the loss rose 11.0 -> 18.2 and
+    # the gradient norm 109 -> 28757 (H100, 700 W); 1e-5 stays in the
+    # regime where a step follows the gradient
+    opt_cfg = adamw.OptConfig(lr=1e-5, warmup_steps=1, total_steps=steps)
+    state = adamw.init_opt_state(params)
+    step_fn = make_train_step(cfg, opt_cfg)
+    host = SyntheticStream(DataConfig(cfg.vocab, seq, batch, seed=0)).batch(0)
+    data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    # count calls of the plain versions too: the run must make none
+    plain_calls = []
+    originals = {}
+    for name in ("hla2_chunk_fwd_plain", "hla2_chunk_bwd_plain"):
+        fn = originals[name] = getattr(hla2_chunk, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            plain_calls.append(_name)
+            return _fn(*a, **kw)
+
+        setattr(hla2_chunk, name, counted)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    LAUNCHES.clear()  # count the main path only
+    losses, norms, step_s = [], [], []
+    try:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, data)
+            losses.append(float(m["loss"]))  # waits for the step
+            step_s.append(time.perf_counter() - t0)
+            norms.append(float(m["grad_norm"]))
+    finally:
+        for name, fn in originals.items():
+            setattr(hla2_chunk, name, fn)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    p50 = float(np.percentile(step_s, 50))
+    log(f"trained {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.dtype} activations, fp32 parameters and moments) for {steps} "
+        f"AdamW steps on one {batch} x {seq} batch: loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)} | grad norm "
+        f"{' '.join(f'{x:.3f}' for x in norms)} | step "
+        f"{' '.join(f'{x:.3f}' for x in step_s)} s | step p50 {p50:.3f}s "
+        f"| {batch * seq / p50:.0f} tok/s | peak memory {peak:.2f} GiB | "
+        f"launches {launches} | plain calls {len(plain_calls)}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError("non-finite loss or gradient norm")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall on the repeated batch")
+    want = {"hla2_chunk_fwd": cfg.n_layers * steps,
+            "hla2_chunk_bwd": cfg.n_layers * steps}
+    if launches != want or plain_calls:
+        raise AssertionError(f"kernel launches {launches}, want {want}; "
+                             f"plain calls {plain_calls}")
+    return launches, dict(step_p50_s=p50, tok_s=batch * seq / p50,
+                          peak_gib=peak, losses=losses)
+
+
+# --------------------------------------------------------------------------
+# phase 6: timing
 # --------------------------------------------------------------------------
 
 
@@ -396,6 +590,109 @@ def chunk_fmas(n, d, dv, w=64, has_init=False):
             fp32 += r * d * d + tri(r) * d    # Q S0, T2 weights
             fp32 += 3 * r * d * dv            # (Q S0) C0, Q G0, K C0
     return bf16, fp32
+
+
+def chunk_bwd_fmas(n, d, dv, w=64):
+    """FMAs one row of hla2_chunk_bwd needs for bf16 inputs (gamma, no
+    normalize, no lam), split by operand type: ``(bf16 x bf16, fp32)``.
+
+    Per chunk of r tokens, the products of the adjoint in
+    ``chunk_math.hla2_chunk_math_bwd``, as the kernel groups them, with
+    only the causal triangles of the masked ones.  Left out where the data
+    makes them zero or unused: products with the carry on the first chunk
+    (its carry is zero) and the carry cotangent it would hand back (the
+    forward's initial carry is no input), and products with the incoming
+    carry cotangent on the last chunk (the final carry's cotangent is
+    zero).  K Q^T and dO V^T multiply two inputs (bf16); every other
+    product has an fp32 operand.  O(r d) vector terms are left out.
+    """
+    def tri(x):  # entries of a causal triangle, diagonal included
+        return x * (x + 1) // 2
+
+    bf16 = fp32 = 0
+    for c0 in range(0, n, w):
+        r = min(w, n - c0)
+        first, last = c0 == 0, c0 + r == n
+        tri3 = r * (r + 1) * (r + 2) // 6
+        bf16 += r * r * d + tri(r) * dv      # K Q^T, E = dO V^T
+        fp32 += 3 * tri3                     # A Bm, dA, dBm
+        fp32 += tri(r) * dv + 4 * tri(r) * d  # wgt^T dO; dBm, dA into dq, dk
+        if not last:  # products with the incoming carry cotangent
+            # Kg dG, V dC^T, Qg dC, Z dG^T; Kg dS, K dS^T
+            fp32 += 4 * r * d * dv + 2 * r * d * d
+            # N (r V), dN, N^T (Kg dG); dN Q, dN^T K
+            fp32 += 3 * tri(r - 1) * dv + 2 * tri(r - 1) * d
+            if not first:  # rho K C0, rho (Kg dG) C0^T, K^T (Kg dG)
+                fp32 += 3 * r * d * dv
+        if not first:  # products with the carry, and the cotangent of it
+            fp32 += r * d * d + tri(r) * d  # Q S0, Q S0 Q^T
+            fp32 += 2 * r * d * dv  # dO C0^T, dO G0^T
+            fp32 += 2 * tri(r) * d + 2 * r * d * d  # dQS0, dX2^T Q S0;
+            #                         (dO C0^T) S0^T, dQS0 S0^T
+            fp32 += 2 * d * dv * r + d * d * r  # dC, dG, dS updates
+    return bf16, fp32
+
+
+def _bound(nbytes, bf16_fma, fp32_fma, rows):
+    t_b = 1e3 * nbytes / PEAK_BYTES_S
+    t_f = 1e3 * 2 * rows * (bf16_fma / PEAK_BF16_FLOP_S
+                            + fp32_fma / PEAK_FP32_FLOP_S)
+    return max(t_b, t_f), "bytes" if t_b > t_f else "operations"
+
+
+def time_train_kernels(device, bwd_abs, ckpt_abs, launches, rows=32, n=2048,
+                       d=128):
+    """The forward with checkpoints and the backward, and their plain
+    versions, at the train phase's shapes (bf16 inputs, gamma)."""
+    import torch
+
+    from repro_torch.kernels.hla2_chunk import (
+        hla2_chunk_bwd, hla2_chunk_bwd_plain, hla2_chunk_fwd,
+        hla2_chunk_fwd_plain)
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    q, k, v, g = _inputs(gen, rows, n, d, d, torch.bfloat16, device)
+    do = torch.randn(v.shape, generator=gen, device=device).to(v.dtype)
+    ms_f = median_ms(lambda i: hla2_chunk_fwd(q, k, v, g,
+                                              save_chunk_states=True), 10)
+    plain_f = median_ms(lambda i: hla2_chunk_fwd_plain(
+        q, k, v, g, save_chunk_states=True), 3)
+    _, _, ck = hla2_chunk_fwd(q, k, v, g, save_chunk_states=True)
+    ms_b = median_ms(lambda i: hla2_chunk_bwd(q, k, v, g, do, ck), 10)
+    plain_b = median_ms(lambda i: hla2_chunk_bwd_plain(q, k, v, g, do, ck), 3)
+    nc = -(-n // 64)
+    ck_bytes = 4 * rows * nc * (3 * d * d + 2 * d)
+    st_bytes = 4 * rows * (3 * d * d + 2 * d)
+    io = 2 * rows * n * 4 * d  # q, k, v and o (or do), bf16
+    bf_f, f32_f = chunk_fmas(n, d, d)
+    bound_f, by_f = _bound(io + st_bytes + ck_bytes + 4 * rows, bf_f, f32_f,
+                           rows)
+    bf_b, f32_b = chunk_bwd_fmas(n, d, d)
+    # q, k, v, do in; dq, dk, dv out (bf16); checkpoints in; gamma, dgamma
+    bound_b, by_b = _bound(io + 2 * rows * n * 3 * d + ck_bytes + 8 * rows,
+                           bf_b, f32_b, rows)
+    fwd = dict(
+        name="hla2_chunk_fwd[save_chunk_states]", route="cuda",
+        source=CHUNK_SRC, replaces="src/repro/kernels/hla2_chunk.py:176",
+        launches=launches.get("hla2_chunk_fwd", 0), max_abs_err=ckpt_abs,
+        ms=ms_f, plain_ms=plain_f, bound_ms=bound_f, bound_by=by_f,
+        library_ms=None)
+    bwd = dict(
+        name="hla2_chunk_bwd", route="cuda", source=BWD_SRC,
+        replaces="src/repro/kernels/hla2_chunk.py:378",
+        launches=launches.get("hla2_chunk_bwd", 0), max_abs_err=bwd_abs,
+        ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b,
+        library_ms=None)
+    log(f"hla2_chunk_fwd with checkpoints at rows {rows} n {n} d {d}, bf16 "
+        f"in: {ms_f:.4f} ms, plain {plain_f:.4f} ms, bound {bound_f:.4f} ms "
+        f"({by_f}: {2 * rows * bf_f / 1e9:.3f} GFLOP bf16 x bf16 + "
+        f"{2 * rows * f32_f / 1e9:.3f} GFLOP fp32; checkpoints "
+        f"{ck_bytes / 1e6:.1f} MB)")
+    log(f"hla2_chunk_bwd at rows {rows} n {n} d {d}, bf16 in: {ms_b:.4f} ms, "
+        f"plain {plain_b:.4f} ms, bound {bound_b:.4f} ms ({by_b}: "
+        f"{2 * rows * bf_b / 1e9:.3f} GFLOP bf16 x bf16 at 989 TFLOP/s + "
+        f"{2 * rows * f32_b / 1e9:.3f} GFLOP fp32 at 67 TFLOP/s)")
+    return [fwd, bwd]
 
 
 def time_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
@@ -480,12 +777,13 @@ def main() -> int:
     from repro_torch.kernels import decode_step, hla2_chunk
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, at once
-        list(pool.map(lambda a: _build.load(*a),
-                      [("hla2_chunk_fwd", hla2_chunk._SIG),
-                       ("hla2_step", decode_step._SIG)]))
-    log(f"built both kernels in {time.perf_counter() - t0:.1f}s")
-    for name in ("hla2_chunk_fwd", "hla2_step"):
+    builds = [("hla2_chunk_fwd", hla2_chunk._SIG),
+              ("hla2_step", decode_step._SIG),
+              ("hla2_chunk_bwd", hla2_chunk._BWD_SIG)]
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source
+        list(pool.map(lambda a: _build.load(*a), builds))
+    log(f"built {len(builds)} kernels in {time.perf_counter() - t0:.1f}s")
+    for name, _ in builds:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"{name} ptxas: {line.strip()}")
@@ -494,16 +792,21 @@ def main() -> int:
     step_abs = check_step(device)
     check_chunk(device, rows=8, d=16, ns=(130, 7))  # reduced hla-1b heads
     check_step(device, rows=8, d=16, n_prior=70)
+    bwd_abs, ckpt_abs = check_chunk_bwd(device)
+    check_chunk_bwd(device, rows=8, d=16, ns=(130, 7), small=True)
     torch.cuda.synchronize()
 
     check_small_model(device)
+    check_small_train(device)
     cfg = get_config("hla-1b")
     params = init_params(lm.lm_specs(cfg), 0, device)
     check_identity(params, cfg.replace(dtype="float32"))
 
     launches, _ = serve(params, cfg, device)
     del params
+    train_launches, _ = train(device)
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
+    kernels += time_train_kernels(device, bwd_abs, ckpt_abs, train_launches)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

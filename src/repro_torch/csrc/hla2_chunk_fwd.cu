@@ -1,11 +1,12 @@
 // Chunkwise masked HLA2 forward for Hopper (sm_90a): prompt prefill.
 //
 // Replaces: src/repro/kernels/hla2_chunk.py, hla2_chunk_pallas (body
-// _hla2_chunk_kernel), forward without save_chunk_states.
+// _hla2_chunk_kernel), save_chunk_states included.
 //
 // Computes, per (batch*head) row, o = T1 + T2 + T3 for every chunk and the
 // final carry (S, C, m, G, h), with optional initial carry, per-row decay
-// gamma, ratio normalisation and ridge lam (see
+// gamma, ratio normalisation and ridge lam, and optionally each chunk's
+// incoming carry for the backward kernel (hla2_chunk_bwd.cu) (see
 // src/repro_torch/kernels/chunk_math.py for the math it matches).
 //
 // Bound on this card: operations.  A 64-token chunk at d = dv = 128 does
@@ -93,8 +94,9 @@ __global__ void __launch_bounds__(THREADS)
                           const T* __restrict__ v,
                           const float* __restrict__ gamma, T* __restrict__ o,
                           float* S, float* C, float* m, float* G, float* h,
-                          int n, int d, int dv, int has_init, int normalize,
-                          float eps, float lam) {
+                          float* Sc, float* Cc, float* mc, float* Gc,
+                          float* hc, int n, int d, int dv, int has_init,
+                          int normalize, float eps, float lam) {
   extern __shared__ float smem[];
   const int dp = d + 1, dvp = dv + 1, wp = W + 1;
   const int xp = (d > dv ? d : dv) + 1;
@@ -128,8 +130,21 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = tid; i <= W; i += THREADS) gp[i] = expf(i * logg);
   __syncthreads();
 
+  const size_t nc = (n + W - 1) / W;
   for (int c0 = 0; c0 < n; c0 += W) {
     const int r = min(W, n - c0);
+    if (Sc) {  // checkpoint the incoming carry: chunk c0 / W of this row
+      const size_t c = row * nc + c0 / W;
+      for (int i = tid; i < d * d; i += THREADS) Sc[c * d * d + i] = S[i];
+      for (int i = tid; i < d * dv; i += THREADS) {
+        Cc[c * d * dv + i] = C[i];
+        Gc[c * d * dv + i] = G[i];
+      }
+      for (int i = tid; i < d; i += THREADS) {
+        mc[c * d + i] = m[i];
+        hc[c * d + i] = h[i];
+      }
+    }
     for (int i = tid; i < r * d; i += THREADS) {
       const int t = i / d, a = i - t * d;
       const size_t src = (size_t)(c0 + t) * d + a;
@@ -273,17 +288,18 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* gamma, void* o, float* S, float* C, float* m,
-                   float* G, float* h, int BH, int n, int d, int dv,
-                   int has_init, int normalize, float eps, float lam,
-                   size_t smem, cudaStream_t stream) {
+                   float* G, float* h, float* const* ck, int BH, int n,
+                   int d, int dv, int has_init, int normalize, float eps,
+                   float lam, size_t smem, cudaStream_t stream) {
   auto kern = hla2_chunk_fwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<BH, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), gamma, static_cast<T*>(o), S, C, m, G, h, n,
-      d, dv, has_init, normalize, eps, lam);
+      static_cast<const T*>(v), gamma, static_cast<T*>(o), S, C, m, G, h,
+      ck[0], ck[1], ck[2], ck[3], ck[4], n, d, dv, has_init, normalize, eps,
+      lam);
   return cudaGetLastError();
 }
 
@@ -302,22 +318,27 @@ extern "C" {
 
 // q, k: (BH, n, d); v, o: (BH, n, dv) in bf16 (is_bf16) or fp32;
 // gamma: (BH,) fp32 or null; S, C, m, G, h: fp32 carry, read as the
-// initial state when has_init and overwritten with the final state.
+// initial state when has_init and overwritten with the final state;
+// Sc, Cc, mc, Gc, hc: null, or fp32 (BH, ceil(n / 64), ...) buffers that
+// receive the carry each chunk starts from.
 // Returns the CUDA error of the launch (0 = launched).
 int hla2_chunk_fwd(const void* q, const void* k, const void* v,
                    const float* gamma, void* o, float* S, float* C, float* m,
-                   float* G, float* h, int BH, int n, int d, int dv,
+                   float* G, float* h, float* Sc, float* Cc, float* mc,
+                   float* Gc, float* hc, int BH, int n, int d, int dv,
                    int is_bf16, int has_init, int normalize, float eps,
                    float lam, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = smem_bytes(d, dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch<__nv_bfloat16>(q, k, v, gamma, o, S, C, m, G, h, BH,
-                                        n, d, dv, has_init, normalize, eps,
-                                        lam, smem, s)
-                : launch<float>(q, k, v, gamma, o, S, C, m, G, h, BH, n, d, dv,
-                                has_init, normalize, eps, lam, smem, s);
+  float* const ck[5] = {Sc, Cc, mc, Gc, hc};
+  err = is_bf16 ? launch<__nv_bfloat16>(q, k, v, gamma, o, S, C, m, G, h, ck,
+                                        BH, n, d, dv, has_init, normalize,
+                                        eps, lam, smem, s)
+                : launch<float>(q, k, v, gamma, o, S, C, m, G, h, ck, BH, n,
+                                d, dv, has_init, normalize, eps, lam, smem,
+                                s);
   return (int)err;
 }
 

@@ -91,14 +91,14 @@ def load(name: str, signature) -> ctypes.CDLL:
 
 
 def refuse_grad(name: str, tensors) -> None:
-    """Raise where autograd would record a kernel call: the kernels have no
-    backward yet, so their outputs would carry no graph and the leaves
-    behind them would silently get no gradient."""
+    """Raise where autograd would record a raw kernel call: the kernels
+    write through raw pointers, so their outputs would carry no graph and
+    the leaves behind them would silently get no gradient."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (the port of "
-            "hla2_chunk_bwd_pallas is still to come); call it under "
-            "torch.no_grad() or on tensors that do not require grad")
+            f"{name}: the raw CUDA kernel records no backward; differentiate "
+            "through repro_torch.kernels.ops.hla2_attention, or call it "
+            "under torch.no_grad() or on tensors that do not require grad")
 
 
 def check(err: int, name: str) -> None:

@@ -94,3 +94,161 @@ def hla2_chunk_math(Q, K, V, state, g, *, normalize: bool, eps: float,
     G1 = r**2 * G0 + Gw + r * (Sw @ C0)
     h1 = rv**2 * h0 + hw[..., 0] + rv * (Sw @ m0[..., None])[..., 0]
     return o, (S1, C1, m1, G1, h1)
+
+
+def hla2_chunk_math_bwd(Q, K, V, state, g, dO, dstate1, *, normalize: bool,
+                        eps: float, lam: float):
+    """Adjoint of ``hla2_chunk_math``, derived by hand: the twin of
+    ``jax.vjp(hla2_chunk_math)`` in ``repro/kernels/hla2_chunk.py``'s
+    backward kernel.
+
+    Given the cotangents ``dO`` of the output and ``dstate1 = (dS1, dC1,
+    dm1, dG1, dh1)`` of the outgoing carry, returns ``(dQ, dK, dV,
+    dstate0, dg)``: the cotangents of the inputs, of the incoming carry and
+    of the decay ``g`` (shape ``(...,)``).  Same shapes and batching as
+    ``hla2_chunk_math``.  With ``p[t] = g^(t+1)``, ``r[t] = g^(w-1-t)`` and
+    ``rho = g^w``, the forward's intermediates are recomputed from the
+    inputs and the incoming carry, then every product is transposed.
+    """
+    w = Q.shape[-2]
+    S0, C0, m0, G0, h0 = state
+    dS1, dC1, dm1, dG1, dh1 = dstate1
+    Lg, p, r = decay_mats(w, g)
+    t = torch.arange(w, device=Q.device)
+    U = (t[:, None] <= t[None, :]).to(Q.dtype)
+    Ls = (t[:, None] > t[None, :]).to(Q.dtype)
+    logg = torch.log(g)
+    rho = torch.exp(logg * w)
+    rm, rv = rho[..., None, None], rho[..., None]
+    pc, rc = p[..., None], r[..., None]
+
+    def mv(M, x):
+        return (M @ x[..., None])[..., 0]
+
+    def outer(a, b):
+        return a[..., :, None] * b[..., None, :]
+
+    def dot(a, b):  # Frobenius product of matrices, batched
+        return (a * b).sum((-2, -1))
+
+    # the forward's intermediates
+    QK = Q @ K.mT
+    A = QK * Lg
+    Bm = QK.mT * U
+    AB = A @ Bm
+    M3 = AB * Lg
+    QS0 = Q @ S0
+    X2 = QS0 @ Q.mT
+    P2 = X2 * Lg
+    D0 = S0 @ C0 - G0
+    Kg, Qg, Vg = rc * K, rc * Q, rc * V
+    Sw = Kg.mT @ K
+    N = QK.mT * Ls
+    NVg = N @ Vg
+    Nmg = mv(N, r)
+
+    # carry part: S1 = rho S0 + Sw, C1 = rho C0 + Qg^T V, m1 = rho m0 +
+    # Qg^T 1, G1 = rho^2 G0 + Kg^T N Vg + rho Sw C0, h1 likewise with m0
+    dS0 = rm * dS1
+    dC0 = rm * dC1 + rm * (Sw.mT @ dG1)
+    dm0 = rv * dm1 + rv * mv(Sw, dh1)
+    dG0 = rm**2 * dG1
+    dh0 = rv**2 * dh1
+    dSw = dS1 + rm * (dG1 @ C0.mT) + rm * outer(dh1, m0)
+    drho = (dot(dS1, S0) + dot(dC1, C0) + (dm1 * m0).sum(-1)
+            + 2 * rho * dot(dG1, G0) + dot(dG1, Sw @ C0)
+            + 2 * rho * (dh1 * h0).sum(-1) + (dh1 * mv(Sw, m0)).sum(-1))
+    dKg = K @ dSw.mT + NVg @ dG1.mT + outer(Nmg, dh1)
+    dK = Kg @ dSw
+    dQg = V @ dC1.mT + dm1[..., None, :]
+    dV = Qg @ dC1
+    KgdG = Kg @ dG1
+    Kgdh = mv(Kg, dh1)
+    dN = (KgdG @ Vg.mT + outer(Kgdh, r)) * Ls
+    dVg = N.mT @ KgdG
+    dK = dK + dN @ Q
+    dQ = dN.mT @ K
+    dV = dV + rc * dVg
+    dK = dK + rc * dKg
+    dQ = dQ + rc * dQg
+    dr = ((dVg * V).sum(-1) + (dKg * K).sum(-1) + (dQg * Q).sum(-1)
+          + mv(N.mT, Kgdh))
+
+    # output part: o = num, or num / (den + eps)
+    p2 = p**2
+    QD0 = Q @ D0
+    P2V = P2 @ V
+    if normalize:
+        num = p2[..., None] * QD0 + pc * P2V + M3 @ V
+        d0v = mv(S0, m0) - h0
+        den = p2 * mv(Q, d0v) + p * P2.sum(-1) + M3.sum(-1)
+        if lam:
+            Wqq = (Q @ Q.mT) * Lg
+            num = num + lam * (pc * (Q @ C0) + Wqq @ V)
+            den = den + lam * (p * mv(Q, m0) + Wqq.sum(-1))
+        z = den + eps
+        dnum = dO / z[..., None]
+        dden = -(dO * num).sum(-1) / z**2
+    else:
+        dnum = dO
+        dden = torch.zeros_like(p)
+    dD0 = Q.mT @ (p2[..., None] * dnum)
+    dS0 = dS0 + dD0 @ C0.mT
+    dC0 = dC0 + S0.mT @ dD0
+    dG0 = dG0 - dD0
+    dQ = dQ + p2[..., None] * (dnum @ D0.mT)
+    dp = 2 * p * (dnum * QD0).sum(-1) + (dnum * P2V).sum(-1) \
+        + dden * P2.sum(-1)
+    dV = dV + P2.mT @ (pc * dnum) + M3.mT @ dnum
+    dnV = dnum @ V.mT + dden[..., None]
+    dP2 = pc * dnV
+    dM3 = dnV
+    if normalize:
+        dd0v = mv(Q.mT, p2 * dden)
+        dQ = dQ + outer(p2 * dden, d0v)
+        dS0 = dS0 + outer(dd0v, m0)
+        dm0 = dm0 + mv(S0.mT, dd0v)
+        dh0 = dh0 - dd0v
+        dp = dp + 2 * p * dden * mv(Q, d0v)
+    if lam:
+        QQ = Q @ Q.mT
+        Wqq = QQ * Lg
+        dQ = dQ + lam * pc * (dnum @ C0.mT) + lam * outer(p * dden, m0)
+        dC0 = dC0 + lam * (Q.mT @ (pc * dnum))
+        dm0 = dm0 + lam * mv(Q.mT, p * dden)
+        dp = dp + lam * (dnum * (Q @ C0)).sum(-1) + lam * dden * mv(Q, m0)
+        dWqq = lam * dnV
+        dV = dV + lam * (Wqq.mT @ dnum)
+        dWL = dWqq * Lg
+        dQ = dQ + (dWL + dWL.mT) @ Q
+    dX2 = dP2 * Lg
+    dQS0 = dX2 @ Q
+    dQ = dQ + dX2.mT @ QS0 + dQS0 @ S0.mT
+    dS0 = dS0 + Q.mT @ dQS0
+    dY = dM3 * Lg
+    dA = dY @ Bm.mT
+    dBm = (A.mT @ dY) * U
+    dK = dK + dBm @ Q
+    dQ = dQ + dBm.mT @ K
+    dAL = dA * Lg
+    dQ = dQ + dAL @ K
+    dK = dK + dAL.mT @ Q
+    dLg = dP2 * X2 + dM3 * AB + dA * QK
+    if lam:
+        dLg = dLg + dWqq * QQ
+
+    # d/dg of g^(t-j) (t > j only: no g^-1 is formed), g^(t+1),
+    # g^(w-1-t) (t < w-1) and g^w
+    diff = t[:, None] - t[None, :]
+    strict = diff > 0
+    e = torch.where(strict, diff - 1, 0).to(Q.dtype)
+    cL = torch.where(strict, diff.to(Q.dtype)
+                     * torch.exp(e * logg[..., None, None]), 0.0)
+    tv = t.to(Q.dtype)
+    cp = (tv + 1) * torch.exp(tv * logg[..., None])
+    cr = torch.where(t < w - 1, (w - 1 - tv)
+                     * torch.exp((w - 2 - tv).clamp_min(0) * logg[..., None]),
+                     0.0)
+    dg = (dot(dLg, cL) + (dp * cp).sum(-1)
+          + (dr * cr).sum(-1) + drho * w * torch.exp((w - 1) * logg))
+    return dQ, dK, dV, (dS0, dC0, dm0, dG0, dh0), dg

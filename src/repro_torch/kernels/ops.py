@@ -1,11 +1,13 @@
-"""Inference entry points over model-layout ``(B, H, n, d)`` tensors.
+"""Entry points over model-layout ``(B, H, n, d)`` tensors.
 
-Twin of the inference half of ``repro/kernels/ops.py``: ``hla2_prefill``
-runs a whole prompt through ONE chunk-parallel kernel launch (optionally
-resuming from a carry) and returns the exact streaming state;
-``hla2_decode_step`` applies one token to every (batch, head) row in ONE
-launch, updating the state in place.  ``LAUNCHES`` counts kernel launches
-by kernel name (the reference's ``TRACE_COUNTS``).
+Twin of the HLA2 half of ``repro/kernels/ops.py``: ``hla2_attention`` is
+the differentiable training path (ONE forward launch that checkpoints each
+chunk's incoming carry, ONE backward launch that walks them in reverse);
+``hla2_prefill`` runs a whole prompt through ONE chunk-parallel kernel
+launch (optionally resuming from a carry) and returns the exact streaming
+state; ``hla2_decode_step`` applies one token to every (batch, head) row in
+ONE launch, updating the state in place.  ``LAUNCHES`` counts kernel
+launches by kernel name (the reference's ``TRACE_COUNTS``).
 """
 
 from __future__ import annotations
@@ -15,16 +17,63 @@ import torch
 from ._build import LAUNCHES
 from ..core.hla2 import HLA2State
 from .decode_step import hla2_step
-from .hla2_chunk import hla2_chunk_fwd
+from .hla2_chunk import hla2_chunk_bwd, hla2_chunk_fwd
 
-__all__ = ["LAUNCHES", "hla2_prefill", "hla2_decode_step"]
+__all__ = ["LAUNCHES", "hla2_attention", "hla2_prefill", "hla2_decode_step"]
 
 
-def _rows_gamma(gamma, B, H, device):
+def _rows_gamma(gamma, B, H, device, dtype=torch.float32):
     if gamma is None:
         return None
-    g = torch.as_tensor(gamma, dtype=torch.float32, device=device)
+    g = torch.as_tensor(gamma, dtype=dtype, device=device)
     return g.broadcast_to((B, H)).reshape(B * H).contiguous()
+
+
+def _rows(x):
+    return x.reshape((-1,) + x.shape[2:]).contiguous()
+
+
+class _HLA2Attention(torch.autograd.Function):
+    """Twin of ``_hla2_fwd_core``'s fused path (``_hla2_vjp_fwd`` /
+    ``_hla2_vjp_bwd``): the forward kernel saves the chunk checkpoints, the
+    backward kernel walks them in reverse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gamma, normalize, eps, lam):
+        B, H, n, _ = q.shape
+        g = _rows_gamma(None if gamma is None else gamma.detach(), B, H,
+                        q.device, torch.promote_types(q.dtype, torch.float32))
+        rows = tuple(_rows(x.detach()) for x in (q, k, v))
+        with torch.no_grad():
+            o, _, ckpt = hla2_chunk_fwd(
+                *rows, g, normalize=normalize, eps=eps, lam=lam,
+                save_chunk_states=True)
+        ctx.save_for_backward(*rows, g, *ckpt)
+        ctx.meta = (B, H, normalize, eps, lam,
+                    None if gamma is None else gamma.shape)
+        return o.reshape(B, H, n, -1)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, g, *ckpt = ctx.saved_tensors
+        B, H, normalize, eps, lam, gshape = ctx.meta
+        dq, dk, dv, dg = hla2_chunk_bwd(
+            q, k, v, g, _rows(do.to(v.dtype)), tuple(ckpt),
+            normalize=normalize, eps=eps, lam=lam)
+        if gshape is not None:  # back through the (B*H,) broadcast
+            dg = dg.reshape(B, H).sum_to_size(gshape)
+        return (dq.reshape(B, H, *dq.shape[1:]),
+                dk.reshape(B, H, *dk.shape[1:]),
+                dv.reshape(B, H, *dv.shape[1:]), dg, None, None, None)
+
+
+def hla2_attention(q, k, v, gamma=None, *, normalize: bool = False,
+                   eps: float = 1e-6, lam: float = 0.0):
+    """Masked second-order HLA over ``(B, H, n, d)`` tensors, differentiable
+    in ``q, k, v`` and ``gamma`` (broadcastable to ``(B, H)``): one
+    chunkwise forward launch with checkpoints, one backward launch.
+    Returns ``o (B, H, n, dv)`` in ``v.dtype``; no state."""
+    return _HLA2Attention.apply(q, k, v, gamma, normalize, eps, lam)
 
 
 def hla2_prefill(q, k, v, gamma=None, *, state: HLA2State | None = None,
@@ -34,14 +83,10 @@ def hla2_prefill(q, k, v, gamma=None, *, state: HLA2State | None = None,
     ``(o, HLA2State)`` with fp32 state leaves ``(B, H, ...)``; ``state``
     (if given) is the carry to resume from and is not modified."""
     B, H, n, _ = q.shape
-
-    def rows(x):
-        return x.reshape((B * H,) + x.shape[2:]).contiguous()
-
     init = None if state is None else tuple(
-        rows(x.to(torch.float32)) for x in state)
+        _rows(x.to(torch.float32)) for x in state)
     o, st = hla2_chunk_fwd(
-        rows(q), rows(k), rows(v), _rows_gamma(gamma, B, H, q.device),
+        _rows(q), _rows(k), _rows(v), _rows_gamma(gamma, B, H, q.device),
         initial_state=init, normalize=normalize, eps=eps, lam=lam,
     )
     return (o.reshape(B, H, n, -1),
@@ -55,13 +100,9 @@ def hla2_decode_step(state: HLA2State, q_t, k_t, v_t, gamma=None, *,
     place** (its fp32 leaves must be contiguous ``(B, H, ...)`` tensors)
     and returns ``(state, o_t)`` with ``o_t (B, H, dv)``."""
     B, H, _ = q_t.shape
-
-    def rows(x):
-        return x.reshape((B * H,) + x.shape[2:]).contiguous()
-
     # views, not copies: the kernel's in-place writes land in ``state``
     views = tuple(x.view((B * H,) + x.shape[2:]) for x in state)
-    o = hla2_step(views, rows(q_t), rows(k_t), rows(v_t),
+    o = hla2_step(views, _rows(q_t), _rows(k_t), _rows(v_t),
                   _rows_gamma(gamma, B, H, q_t.device),
                   normalize=normalize, eps=eps, lam=lam)
     return state, o.reshape(B, H, -1)

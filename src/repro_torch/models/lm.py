@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from . import seq_op
 from .blocks import (
@@ -96,7 +97,8 @@ def _trunk(params, tokens, cfg, states, mode):
         if mode == "decode":
             y, st = op.step(p["mixer"], h, st, cfg)
         else:
-            y, st = op.forward(p["mixer"], h, cfg, state=st)
+            y, st = op.forward(p["mixer"], h, cfg, state=st,
+                               want_state=mode == "prefill")
             new.append(st)
         x = x + y
         x = x + mlp_apply(p["mlp"], rmsnorm_apply(p["ln2"], x, cfg.norm_eps))
@@ -130,3 +132,18 @@ def lm_prefill(params, tokens, cfg, *, states=None):
     the logits of the final prompt position only."""
     x, states = _trunk(params, tokens, cfg, states, "prefill")
     return _unembed(params, x[:, -1]), states
+
+
+def lm_loss(params, tokens, labels, cfg, *, denom=None):
+    """Mean next-token cross-entropy in fp32 over ``mode="train"`` logits;
+    labels < 0 are ignored.  ``denom`` overrides the normaliser (default:
+    this batch's valid-token count).  Returns ``(loss, ce)`` (the same
+    number: the port's stack has no auxiliary loss)."""
+    logits, _ = lm_apply(params, tokens, cfg, mode="train")
+    logits = logits.float()
+    mask = labels >= 0
+    nll = F.cross_entropy(logits.flatten(0, 1), labels.clamp_min(0).flatten()
+                          .long(), reduction="none")
+    d = mask.sum().clamp_min(1).float() if denom is None else denom
+    ce = (nll * mask.flatten()).sum() / d
+    return ce, ce

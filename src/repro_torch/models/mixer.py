@@ -5,9 +5,11 @@ Multi-head projections around the HLA2 kernels: q scaled by
 ``head_dim**-0.5``, K/V heads repeated to the query heads (GQA), per-head
 decay ``gamma = sigmoid(decay_a)`` (or fixed, or none), and a per-head RMS
 output norm with a learned ``out_scale``.  The full-sequence path is one
-chunk-parallel kernel launch per call (``kernels.ops.hla2_prefill``); the
-one-token path one batched decode-step launch that updates the state in
-place (``kernels.ops.hla2_decode_step``).
+chunk-parallel kernel launch per call: differentiable and stateless for
+training (``kernels.ops.hla2_attention``), or returning the carry for
+prefill (``kernels.ops.hla2_prefill``); the one-token path one batched
+decode-step launch that updates the state in place
+(``kernels.ops.hla2_decode_step``).
 """
 
 from __future__ import annotations
@@ -69,16 +71,19 @@ def _out_norm(p, o):
     return (o32 * p["out_scale"][None, :, None, :]).to(o.dtype)
 
 
-def hla2_forward(p, x, cfg, *, state=None):
+def hla2_forward(p, x, cfg, *, state=None, want_state=True):
     """Full-sequence path (train / prefill) over ``x (B, n, d_model)``;
     ``state`` is an optional carry to resume from.  Returns ``(y,
-    final_state)``."""
+    final_state)``; with no carry in and none wanted (training) the final
+    state is None and the path is differentiable."""
     B, n, _ = x.shape
     q, k, v = _project(p, x, cfg)
-    o, st = kops.hla2_prefill(
-        q, k, v, _gamma(p, cfg, B, x.device), state=state,
-        normalize=cfg.hla.normalize, eps=HLA_EPS, lam=cfg.hla.lam,
-    )
+    gamma = _gamma(p, cfg, B, x.device)
+    kw = dict(normalize=cfg.hla.normalize, eps=HLA_EPS, lam=cfg.hla.lam)
+    if want_state or state is not None:
+        o, st = kops.hla2_prefill(q, k, v, gamma, state=state, **kw)
+    else:
+        o, st = kops.hla2_attention(q, k, v, gamma, **kw), None
     o = _out_norm(p, o.to(x.dtype))
     o = o.transpose(1, 2).reshape(B, n, cfg.n_heads * cfg.head_dim)
     return dense_apply(p["wo"], o), st

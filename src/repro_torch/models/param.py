@@ -37,6 +37,13 @@ def leaf_paths(tree, prefix=()):
         yield from leaf_paths(tree[key], prefix + (key,))
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def _set(tree, path, value):
     node = tree
     for p in path[:-1]:

@@ -18,7 +18,7 @@ from repro.kernels.decode_step import hla2_step_pallas
 from repro.kernels.hla2_chunk import hla2_chunk_pallas
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.decode_step import hla2_step
-from repro_torch.kernels.hla2_chunk import W, hla2_chunk_fwd
+from repro_torch.kernels.hla2_chunk import W, hla2_chunk_bwd, hla2_chunk_fwd
 
 jax_hla2 = importlib.import_module("repro.core.hla2")
 
@@ -154,7 +154,8 @@ def test_refuse_grad_where_autograd_would_record():
         _build.refuse_grad("k", [x, w])
 
 
-@pytest.mark.parametrize("wrapper", [hla2_chunk_fwd, hla2_step])
+@pytest.mark.parametrize("wrapper", [hla2_chunk_fwd, hla2_chunk_bwd,
+                                     hla2_step])
 def test_cuda_branch_refuses_grad_before_launch(wrapper):
     # a CUDA tensor cannot be made here, so read the CUDA branch: the guard
     # runs on every tensor the kernel reads, before the library is loaded
