@@ -5,20 +5,23 @@
 
 Phases, each of which raises on failure (exit code nonzero, no result line):
 
-1. build the hand-written kernels from ``src/repro_torch/csrc`` (three:
-   the chunkwise forward, the decode step and the chunkwise backward; one
-   nvcc per source, all at once) and print nvcc's register report;
+1. build the hand-written kernels from ``src/repro_torch/csrc`` (five:
+   the HLA2 chunkwise forward, decode step and chunkwise backward, the AHLA
+   chunkwise forward and decode step; one nvcc per source, all at once) and
+   print nvcc's register report;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes (hla-1b rows, head dim 128): the forward and the
-   step at serving shapes, the forward's checkpoints and the backward at
-   the train phase's (32 rows x 2048 tokens);
+   main paths' shapes (hla-1b rows, head dim 128): the forwards and the
+   steps at serving shapes, the HLA2 forward's checkpoints and the backward
+   at the train phase's (32 rows x 2048 tokens);
 3. check the port against its plain path on a small model (card vs CPU):
-   prefill + decode logits, and the training loss and every parameter's
-   gradient; and at full width that prefill(L) + one decode step equals
-   prefill(L + 1) for hla-1b (24 layers, seeded random weights, fp32);
+   prefill + decode logits with either mixer, and the training loss and
+   every parameter's gradient; and at full width that prefill(L) + one
+   decode step equals prefill(L + 1) for hla-1b with either mixer (24
+   layers, seeded random weights, fp32);
 4. serve 8 hla-1b requests through the port's ``Engine`` (bf16, 4 slots),
-   count the kernel launches of that run and time the chunk kernel's
-   launches in it;
+   once with the HLA2 mixer and once with AHLA (``mixer="ahla"``), count
+   the kernel launches of each run and time the chunk kernel's launches in
+   it;
 5. train hla-1b at full width and depth for 5 AdamW steps on one repeated
    2 x 2048 batch, count the kernel launches of that run (24 forward + 24
    backward per step, no plain version) and check the loss falls;
@@ -63,6 +66,8 @@ TOL_DGAMMA = 1e-3
 CHUNK_SRC = "src/repro_torch/csrc/hla2_chunk_fwd.cu"
 STEP_SRC = "src/repro_torch/csrc/hla2_step.cu"
 BWD_SRC = "src/repro_torch/csrc/hla2_chunk_bwd.cu"
+AHLA_CHUNK_SRC = "src/repro_torch/csrc/ahla_chunk_fwd.cu"
+AHLA_STEP_SRC = "src/repro_torch/csrc/ahla_step.cu"
 
 
 # the card's name and power limit, printed beside every number
@@ -248,21 +253,134 @@ def check_step(device, rows=64, d=128, n_prior=300):
     return main_abs
 
 
+def check_ahla_chunk(device, rows=16, d=128, ns=(512, 300)):
+    """ahla_chunk_fwd vs ahla_chunk_fwd_plain: o and all four carry leaves,
+    and the initial carry left as it was.  Returns the max absolute output
+    error of the main-path case (bf16, first n, no carry)."""
+    import torch
+
+    from repro_torch.kernels.ahla_chunk import (
+        ahla_chunk_fwd, ahla_chunk_fwd_plain)
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    qp, kp, vp, gp = _inputs(gen, rows, 200, d, d, torch.float32, device)
+    _, prior = ahla_chunk_fwd_plain(qp, kp, vp, gp)  # a carry to resume
+    _, prior_pos = ahla_chunk_fwd_plain(
+        *_inputs(gen, rows, 200, d, d, torch.float32, device, positive=True))
+    cases = [(dt, n, init, False, True)
+             for dt in (torch.bfloat16, torch.float32) for n in ns
+             for init in (False, True)]
+    cases += [(torch.float32, ns[-1], True, True, True),
+              (torch.bfloat16, ns[0], True, False, False),
+              (torch.float32, ns[-1], False, False, False)]
+    main_abs = None
+    for dt, n, init, norm, use_gamma in cases:
+        q, k, v, g = _inputs(gen, rows, n, d, d, dt, device, positive=norm)
+        g = g if use_gamma else None
+        st0 = (prior_pos if norm else prior) if init else None
+        kw = dict(initial_state=st0, normalize=norm)
+        before = [x.clone() for x in st0] if init else []
+        o_k, s_k = ahla_chunk_fwd(q, k, v, g, **kw)
+        o_p, s_p = ahla_chunk_fwd_plain(q, k, v, g, **kw)
+        e_o = rel_err(o_k, o_p)
+        e_s = max(rel_err(a, b) for a, b in zip(s_k, s_p))
+        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
+        log(f"ahla_chunk_fwd {str(dt)[6:]} rows={rows} n={n} d={d} "
+            f"init={init} gamma={use_gamma} normalize={norm}: "
+            f"o rel {e_o:.2e} (tol {tol:.0e}), "
+            f"state rel {e_s:.2e} (tol {TOL_FP32:.0e})")
+        if not (e_o <= tol and e_s <= TOL_FP32):
+            raise AssertionError("ahla_chunk_fwd disagrees with its plain "
+                                 "version")
+        if any(not torch.equal(a, b) for a, b in zip(before, st0 or ())):
+            raise AssertionError("ahla_chunk_fwd modified initial_state")
+        if main_abs is None:
+            main_abs = abs_err(o_k, o_p)
+    return main_abs
+
+
+def check_ahla_step(device, rows=64, d=128, n_prior=300, steps=4):
+    """ahla_step vs ahla_step_plain over ``steps`` tokens after a prefill,
+    both in place; then prefill(n_prior) + one step == prefill(n_prior + 1)
+    through ``ops`` (kernels on both sides), in o and every state leaf.
+    Returns the max absolute output error of the main-path case (bf16)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_step import ahla_step, ahla_step_plain
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    main_abs = None
+    for dt, norm, use_gamma in ((torch.bfloat16, False, True),
+                                (torch.float32, False, True),
+                                (torch.float32, True, True),
+                                (torch.float32, False, False)):
+        qp, kp, vp, g = _inputs(gen, rows, n_prior, d, d, dt, device,
+                                positive=norm)
+        g = g if use_gamma else None
+        # the prefill the steps resume from, R included: (1, rows) heads
+        _, st0 = ops.ahla_prefill(qp[None], kp[None], vp[None], g)
+        st0 = [x[0] for x in st0]
+        s_k = [x.clone() for x in st0]
+        s_p = [x.clone() for x in st0]
+        ptrs = [x.data_ptr() for x in s_k]
+        e_o = 0.0
+        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
+        for _ in range(steps):
+            q, k, v, _ = _inputs(gen, rows, 1, d, d, dt, device,
+                                 positive=norm)
+            q, k, v = (x[:, 0].contiguous() for x in (q, k, v))
+            o_k = ahla_step(s_k, q, k, v, g, normalize=norm)
+            o_p = ahla_step_plain(s_p, q, k, v, g, normalize=norm)
+            e_o = max(e_o, rel_err(o_k, o_p))
+            if main_abs is None:
+                main_abs = abs_err(o_k, o_p)
+        if [x.data_ptr() for x in s_k] != ptrs or any(
+                torch.equal(a, b) for a, b in zip(s_k, st0)):
+            raise AssertionError("ahla_step did not update its state in place")
+        e_s = max(rel_err(a, b) for a, b in zip(s_k, s_p))
+        log(f"ahla_step {str(dt)[6:]} rows={rows} d={d} after prefill "
+            f"{n_prior}, {steps} steps, gamma={use_gamma} normalize={norm}: "
+            f"o rel {e_o:.2e} (tol {tol:.0e}), "
+            f"state rel {e_s:.2e} (tol {TOL_FP32:.0e})")
+        if not (e_o <= tol and e_s <= TOL_FP32):
+            raise AssertionError("ahla_step disagrees with its plain version")
+
+    # the carry identity through both kernels, fp32
+    q, k, v, g = _inputs(gen, rows, n_prior + 1, d, d, torch.float32, device)
+    q, k, v = q[None], k[None], v[None]  # (1, rows) heads
+    o_full, st_full = ops.ahla_prefill(q, k, v, g)
+    _, st = ops.ahla_prefill(q[:, :, :n_prior].contiguous(),
+                             k[:, :, :n_prior].contiguous(),
+                             v[:, :, :n_prior].contiguous(), g)
+    _, o_t = ops.ahla_decode_step(
+        st, *(x[:, :, n_prior].contiguous() for x in (q, k, v)), g)
+    e_o = rel_err(o_t, o_full[:, :, n_prior])
+    e_s = max(rel_err(a, b) for a, b in zip(st, st_full))
+    log(f"ahla prefill({n_prior}) + step vs prefill({n_prior + 1}), fp32 "
+        f"rows={rows} d={d}: o rel {e_o:.2e}, state rel {e_s:.2e} (tol "
+        f"{TOL_FP32:.0e})")
+    if not (e_o <= TOL_FP32 and e_s <= TOL_FP32):
+        raise AssertionError("ahla prefill + step != longer prefill")
+    return main_abs
+
+
 # --------------------------------------------------------------------------
 # phase 3: the model, against its plain path and against itself
 # --------------------------------------------------------------------------
 
 
-def check_small_model(device):
-    """Reduced hla-1b (fp32): prefill + one decode step on ``device`` (the
-    kernels) vs on the CPU (the plain versions), same weights."""
+def check_small_model(device, mixer=None):
+    """Reduced hla-1b (fp32, its own mixer or ``mixer``): prefill + one
+    decode step on ``device`` (the kernels) vs on the CPU (the plain
+    versions), same weights."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.models.param import init_params
 
-    cfg = get_config("hla-1b", reduced=True)
+    cfg = get_config("hla-1b", reduced=True, mixer=mixer)
     p_cpu = init_params(lm.lm_specs(cfg), 0, "cpu")
     p_dev = _to(p_cpu, device)
     tok = torch.randint(0, cfg.vocab, (2, 150),
@@ -274,8 +392,8 @@ def check_small_model(device):
         step, _ = lm.lm_apply(p, t[:, -1:], cfg, states=st, mode="decode")
         out.append((last.cpu(), step[:, -1].cpu()))
     e = max(rel_err(a, b) for a, b in zip(*out))
-    log(f"reduced hla-1b fp32, prefill 149 + 1 step: {device} kernels vs cpu "
-        f"plain logits rel {e:.2e} (tol {TOL_FP32:.0e})")
+    log(f"reduced hla-1b ({cfg.mixer}) fp32, prefill 149 + 1 step: {device} "
+        f"kernels vs cpu plain logits rel {e:.2e} (tol {TOL_FP32:.0e})")
     if not e <= TOL_FP32:
         raise AssertionError("the model on the card disagrees with the CPU")
 
@@ -349,8 +467,9 @@ def check_identity(params, cfg, L=300):
     if step.shape != full.shape or not bool(step.isfinite().all()):
         raise AssertionError(f"bad logits {tuple(step.shape)}")
     e = rel_err(step, full)
-    log(f"{cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
-        f"{cfg.dtype}: prefill({L}) + step vs prefill({L + 1}) logits rel "
+    log(f"{cfg.name} ({cfg.mixer}) {cfg.n_layers} layers d_model "
+        f"{cfg.d_model} {cfg.dtype}: prefill({L}) + step vs prefill({L + 1}) "
+        "logits rel "
         f"{e:.2e} (tol {TOL_LOGITS:.0e}), argmax "
         f"{int(step.argmax())} vs {int(full.argmax())}")
     if not e <= TOL_LOGITS:
@@ -362,10 +481,15 @@ def check_identity(params, cfg, L=300):
 # --------------------------------------------------------------------------
 
 
+# the prefill and decode kernels each mixer's serving path launches
+SERVE_KERNELS = {"hla2": ("hla2_chunk_fwd", "hla2_step"),
+                 "ahla": ("ahla_chunk_fwd", "ahla_step")}
+
+
 def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
           block=8):
-    """Serve ``n_req`` greedy requests; returns the launch counts of that
-    run and its summary numbers."""
+    """Serve ``n_req`` greedy requests with ``cfg.mixer``; returns the launch
+    counts of that run and its summary numbers."""
     import numpy as np
     import torch
 
@@ -388,7 +512,8 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
     # busy with the layer before, so each pair brackets the launch's device
     # time (plus the wrapper's host time where the stream ran dry)
     marks = []
-    kernel = ops.hla2_chunk_fwd
+    chunk_name, step_name = SERVE_KERNELS[cfg.mixer]
+    kernel = getattr(ops, chunk_name)
 
     def timed(*args, **kw):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -398,13 +523,13 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
         marks.append((start, end))
         return out
 
-    ops.hla2_chunk_fwd = timed
+    setattr(ops, chunk_name, timed)
     LAUNCHES.clear()  # count the main path only
     t0 = time.perf_counter()
     try:
         results = engine.run(reqs)
     finally:
-        ops.hla2_chunk_fwd = kernel
+        setattr(ops, chunk_name, kernel)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -413,9 +538,11 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
     if bad:
         raise AssertionError(f"requests not served: {bad}")
     st = engine.stats
-    want = {"hla2_chunk_fwd": cfg.n_layers * n_req,
-            "hla2_step": cfg.n_layers * st["decode_steps"]}
-    if any(launches.get(k, 0) != v for k, v in want.items()):
+    # one chunk launch per layer per admission, one step launch per layer
+    # per decode step, and no other kernel
+    want = {chunk_name: cfg.n_layers * n_req,
+            step_name: cfg.n_layers * st["decode_steps"]}
+    if launches != want:
         raise AssertionError(f"kernel launches {launches}, want {want}")
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     chunk_ms = [s.elapsed_time(e) for s, e in marks]
@@ -435,8 +562,9 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
         decode_tok_s=(st["generated_tokens"] - n_req) / st["decode_s"],
         prefill_tok_s=st["prompt_tokens"] / st["prefill_s"],
         decode_steps=st["decode_steps"], peak_gib=peak)
-    log(f"served {n_req} requests (prompts {lens[0]}-{lens[1]}, gen {gen}, "
-        f"{slots} slots, block {block}, {cfg.dtype}) in {wall:.2f}s: TTFT "
+    log(f"served {n_req} requests with {cfg.mixer} (prompts "
+        f"{lens[0]}-{lens[1]}, gen {gen}, {slots} slots, block {block}, "
+        f"{cfg.dtype}) in {wall:.2f}s: TTFT "
         f"p50 {out['ttft_p50_ms']:.1f} ms (prompt p50 "
         f"{out['prompt_p50']:.0f} tokens; chunk kernel "
         f"{out['chunk_share_of_prefill']:.1%} of prefill time) | decode "
@@ -633,6 +761,29 @@ def chunk_bwd_fmas(n, d, dv, w=64):
     return bf16, fp32
 
 
+def ahla_chunk_fmas(n, d, dv, w=64, has_init=False):
+    """FMAs one row of ahla_chunk_fwd needs for bf16 inputs (gamma, no
+    normalize), split by operand type: ``(bf16 x bf16, fp32)``.
+
+    Per chunk of r tokens (``chunk_math.ahla_chunk_math``): Q K^T over its
+    causal triangle (two inputs: bf16), A [V | 1] and A R over the
+    triangle (A is fp32), the [P | m] and [E | n] updates, and the products
+    with the carry (Q [P | m], Q E0) except on the first chunk when there
+    is no initial state (its carry is zero).  The den column of A R and of
+    Q E0 is needed under normalize only.
+    """
+    bf16 = fp32 = 0
+    for c0 in range(0, n, w):
+        r = min(w, n - c0)
+        tri = r * (r + 1) // 2
+        bf16 += tri * d                        # Q K^T
+        fp32 += tri * (dv + 1) + tri * dv      # A [V | 1], A R
+        fp32 += 2 * d * (dv + 1) * r           # [P | m], [E | n] updates
+        if has_init or c0 > 0:
+            fp32 += r * d * (dv + 1) + r * d * dv  # Q [P | m], Q E0
+    return bf16, fp32
+
+
 def _bound(nbytes, bf16_fma, fp32_fma, rows):
     t_b = 1e3 * nbytes / PEAK_BYTES_S
     t_f = 1e3 * 2 * rows * (bf16_fma / PEAK_BF16_FLOP_S
@@ -754,6 +905,68 @@ def time_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
     return [chunk, step]
 
 
+def time_ahla_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
+                      n=512, rows_step=64, d=128):
+    """ahla_chunk_fwd and ahla_step, and their plain versions, at the AHLA
+    serve run's shapes (bf16 inputs, gamma, fp32 carry)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ahla_chunk import (
+        ahla_chunk_fwd, ahla_chunk_fwd_plain)
+    from repro_torch.kernels.decode_step import ahla_step, ahla_step_plain
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    bf = torch.bfloat16
+    q, k, v, g = _inputs(gen, rows_chunk, n, d, d, bf, device)
+    ms = median_ms(lambda i: ahla_chunk_fwd(q, k, v, g), 20)
+    plain = median_ms(lambda i: ahla_chunk_fwd_plain(q, k, v, g), 5)
+    bf16_fma, fp32_fma = ahla_chunk_fmas(n, d, d)
+    # q, k, v in and o out (bf16), the fp32 carry out, gamma in
+    state_bytes = 4 * rows_chunk * (2 * d * d + 2 * d)
+    nbytes = 2 * rows_chunk * n * 4 * d + state_bytes + 4 * rows_chunk
+    bound, by = _bound(nbytes, bf16_fma, fp32_fma, rows_chunk)
+    chunk = dict(
+        name="ahla_chunk_fwd", route="cuda", source=AHLA_CHUNK_SRC,
+        replaces="src/repro/kernels/ahla_chunk.py:100",
+        launches=launches.get("ahla_chunk_fwd", 0), max_abs_err=chunk_abs,
+        ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
+    log(f"ahla_chunk_fwd at rows {rows_chunk} n {n} d {d}, bf16 in: "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}: "
+        f"{2 * rows_chunk * bf16_fma / 1e9:.3f} GFLOP bf16 x bf16 at 989 "
+        f"TFLOP/s + {2 * rows_chunk * fp32_fma / 1e9:.3f} GFLOP fp32 at 67 "
+        f"TFLOP/s; {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+
+    # one state per layer of a 24-layer stack would not fit in L2; rotate
+    # over 8 copies (~200 MB) so every launch finds its state cold
+    q, k, v, g = _inputs(gen, rows_step, 1, d, d, bf, device)
+    qp, kp, vp, _ = _inputs(gen, rows_step, 64, d, d, bf, device)
+    _, st0 = ops.ahla_prefill(qp[None], kp[None], vp[None], g)
+    st0 = [x[0] for x in st0]
+    q, k, v = q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous()
+    states = [[x.clone() for x in st0] for _ in range(8)]
+    ms_s = median_ms(lambda i: ahla_step(states[i % 8], q, k, v, g), 40)
+    plain_s = median_ms(
+        lambda i: ahla_step_plain(states[i % 8], q, k, v, g), 10)
+    # the fp32 state R, P, m, E, n read and written once; q, k, v in and o
+    # out (bf16); gamma in
+    state_bytes = 4 * rows_step * (d * d + 2 * d * d + 2 * d)
+    nbytes = 2 * state_bytes + 2 * rows_step * 4 * d + 4 * rows_step
+    # FMAs per row: 2 per element of P and of E (update, q reduction), 1
+    # per element of R; all fp32
+    bound_s, by_s = _bound(nbytes, 0, 5 * d * d, rows_step)
+    step = dict(
+        name="ahla_step", route="cuda", source=AHLA_STEP_SRC,
+        replaces="src/repro/kernels/decode_step.py:250",
+        launches=launches.get("ahla_step", 0), max_abs_err=step_abs,
+        ms=ms_s, plain_ms=plain_s, bound_ms=bound_s, bound_by=by_s,
+        library_ms=None)
+    log(f"ahla_step at rows {rows_step} d {d}, bf16 in, fp32 state, 8 states "
+        f"rotated: {ms_s:.4f} ms, plain {plain_s:.4f} ms, bound "
+        f"{bound_s:.4f} ms ({by_s}: {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+    return [chunk, step]
+
+
 def main() -> int:
     import torch
 
@@ -774,12 +987,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmul and cuDNN: fp32 references run in full fp32")
 
-    from repro_torch.kernels import decode_step, hla2_chunk
+    from repro_torch.kernels import ahla_chunk, decode_step, hla2_chunk
 
     t0 = time.perf_counter()
     builds = [("hla2_chunk_fwd", hla2_chunk._SIG),
               ("hla2_step", decode_step._SIG),
-              ("hla2_chunk_bwd", hla2_chunk._BWD_SIG)]
+              ("hla2_chunk_bwd", hla2_chunk._BWD_SIG),
+              ("ahla_chunk_fwd", ahla_chunk._SIG),
+              ("ahla_step", decode_step._AHLA_SIG)]
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source
         list(pool.map(lambda a: _build.load(*a), builds))
     log(f"built {len(builds)} kernels in {time.perf_counter() - t0:.1f}s")
@@ -794,19 +1009,30 @@ def main() -> int:
     check_step(device, rows=8, d=16, n_prior=70)
     bwd_abs, ckpt_abs = check_chunk_bwd(device)
     check_chunk_bwd(device, rows=8, d=16, ns=(130, 7), small=True)
+    ahla_chunk_abs = check_ahla_chunk(device)
+    ahla_step_abs = check_ahla_step(device)
+    check_ahla_chunk(device, rows=8, d=16, ns=(130, 7))
+    check_ahla_step(device, rows=8, d=16, n_prior=70)
     torch.cuda.synchronize()
 
     check_small_model(device)
+    check_small_model(device, mixer="ahla")
     check_small_train(device)
     cfg = get_config("hla-1b")
+    ahla_cfg = get_config("hla-1b", mixer="ahla")
+    # the two mixers share one parameter layout: one set of weights serves
     params = init_params(lm.lm_specs(cfg), 0, device)
     check_identity(params, cfg.replace(dtype="float32"))
+    check_identity(params, ahla_cfg.replace(dtype="float32"))
 
     launches, _ = serve(params, cfg, device)
+    ahla_launches, _ = serve(params, ahla_cfg, device)
     del params
     train_launches, _ = train(device)
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels += time_train_kernels(device, bwd_abs, ckpt_abs, train_launches)
+    kernels += time_ahla_kernels(device, ahla_chunk_abs, ahla_step_abs,
+                                 ahla_launches)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,13 @@ def list_archs():
     return sorted(_ARCHS)
 
 
-def get_config(name: str, *, reduced: bool = False):
+def get_config(name: str, *, reduced: bool = False, mixer: str | None = None):
     """Resolve an arch id to its ModelConfig (``reduced`` = the small test
-    variant of the same architecture)."""
+    variant of the same architecture).  ``mixer`` overrides the arch's
+    sequence op with another registered one (the paper's drop-in claim,
+    Section 5.2); an unknown name fails at ``seq_op.op_for``."""
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     mod = _ARCHS[name]
-    return mod.reduced() if reduced else mod.CONFIG
+    cfg = mod.reduced() if reduced else mod.CONFIG
+    return cfg if mixer is None else cfg.replace(mixer=mixer)

@@ -1,10 +1,11 @@
-"""Per-chunk HLA2 math: one chunk of the chunkwise scheme as a pure function
-``(Q, K, V, state_in, g) -> (o, state_out)``.
+"""Per-chunk HLA2 and AHLA math: one chunk of the chunkwise scheme as a
+pure function ``(Q, K, V, state_in, g) -> (o, state_out)``.
 
-Twin of the HLA2 half of ``repro/kernels/chunk_math.py``, batched over any
-leading dims instead of one 2D tile, in the dtype of its inputs (fp32 for
-the kernel's plain version, fp64 in the parity tests).  The CUDA kernel
-``csrc/hla2_chunk_fwd.cu`` computes the same function, chunk by chunk.
+Twin of ``repro/kernels/chunk_math.py``, batched over any leading dims
+instead of one 2D tile, in the dtype of its inputs (fp32 for the kernels'
+plain versions, fp64 in the parity tests).  The CUDA kernels
+``csrc/hla2_chunk_fwd.cu`` and ``csrc/ahla_chunk_fwd.cu`` compute the same
+functions, chunk by chunk.
 """
 
 from __future__ import annotations
@@ -252,3 +253,35 @@ def hla2_chunk_math_bwd(Q, K, V, state, g, dO, dstate1, *, normalize: bool,
     dg = (dot(dLg, cL) + (dp * cp).sum(-1)
           + (dr * cr).sum(-1) + drho * w * torch.exp((w - 1) * logg))
     return dQ, dK, dV, (dS0, dC0, dm0, dG0, dh0), dg
+
+
+def ahla_chunk_math(Q, K, V, state, g, *, normalize: bool, eps: float):
+    """One AHLA chunk: the inner and outer linear-attention passes fused.
+
+    ``Q, K: (..., w, d)``, ``V: (..., w, dv)``, ``state = (P0, E0)``, the
+    carries ``[P | m]`` and ``[E | n]`` with the den column appended
+    (``(..., d, dv + 1)``), ``g: (...,)``.  With ``Vb = [V | 1]``, ``A =
+    (Q K^T) . Lg``, ``p[t] = g^(t+1)``, ``r[t] = g^(w-1-t)``, ``rho = g^w``:
+
+        R  = p . (Q P0) + A Vb       (first-order outputs [r | s])
+        O  = p . (Q E0) + A R        (o = O[:, :dv], or / (O[:, dv] + eps))
+        P1 = rho P0 + (r . K)^T Vb
+        E1 = rho E0 + (r . K)^T R
+
+    The reference writes E1 as ``rho E0 + Kg^T (A Vb) + rho (K^T Q) P0``;
+    since ``r[t] p[t] = rho``, ``rho K^T (Q P0) = Kg^T (p . Q P0)`` and the
+    two are equal.  This form needs no d x d product, as the kernel does.
+    """
+    w = Q.shape[-2]
+    P0, E0 = state
+    Vb = torch.cat([V, torch.ones(V.shape[:-1] + (1,), dtype=V.dtype,
+                                  device=V.device)], -1)
+    Lg, pow_t, pow_rev = decay_mats(w, g)
+    pt = pow_t[..., None]
+    A = (Q @ K.mT) * Lg
+    R = pt * (Q @ P0) + A @ Vb
+    O = pt * (Q @ E0) + A @ R
+    o = O[..., :-1] / (O[..., -1:] + eps) if normalize else O[..., :-1]
+    rho = torch.exp(torch.log(g) * w)[..., None, None]
+    Kg = pow_rev[..., None] * K
+    return o, (rho * P0 + Kg.mT @ Vb, rho * E0 + Kg.mT @ R)

@@ -39,7 +39,11 @@ def _float(q):
     return torch.promote_types(q.dtype, torch.float32)
 
 
-def _check(q, k, v, gamma, initial_state):
+def _check(q, k, v, gamma, initial_state, name="hla2_chunk_fwd",
+           state_shapes=_state_shapes, leaves="(S, C, m, G, h)"):
+    """Shared by the chunk kernels' wrappers: shapes, dtypes and devices of
+    the inputs and of an ``initial_state`` of ``state_shapes(BH, d, dv)``
+    leaves (named ``leaves`` in the error)."""
     if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 or \
             v.shape[:2] != q.shape[:2]:
         raise ValueError(
@@ -48,7 +52,7 @@ def _check(q, k, v, gamma, initial_state):
     BH, n, d = q.shape
     dv = v.shape[-1]
     if n == 0:
-        raise ValueError("hla2_chunk_fwd needs at least one token")
+        raise ValueError(f"{name} needs at least one token")
     f64 = torch.float64
     if q.dtype not in (torch.float32, torch.bfloat16, f64) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
@@ -61,9 +65,10 @@ def _check(q, k, v, gamma, initial_state):
     fdt = _float(q)
     want = [((BH,), gamma)] if gamma is not None else []
     if initial_state is not None:
-        if len(initial_state) != 5:
-            raise ValueError("initial_state is (S, C, m, G, h)")
-        want += list(zip(_state_shapes(BH, d, dv), initial_state))
+        shapes = state_shapes(BH, d, dv)
+        if len(initial_state) != len(shapes):
+            raise ValueError(f"initial_state is {leaves}")
+        want += list(zip(shapes, initial_state))
     for shape, x in want:
         if tuple(x.shape) != shape or x.dtype != fdt:
             raise ValueError(f"want {fdt} {shape}, got {x.dtype} "

@@ -1,25 +1,32 @@
 """Entry points over model-layout ``(B, H, n, d)`` tensors.
 
-Twin of the HLA2 half of ``repro/kernels/ops.py``: ``hla2_attention`` is
-the differentiable training path (ONE forward launch that checkpoints each
+Twin of ``repro/kernels/ops.py``.  HLA2: ``hla2_attention`` is the
+differentiable training path (ONE forward launch that checkpoints each
 chunk's incoming carry, ONE backward launch that walks them in reverse);
 ``hla2_prefill`` runs a whole prompt through ONE chunk-parallel kernel
 launch (optionally resuming from a carry) and returns the exact streaming
 state; ``hla2_decode_step`` applies one token to every (batch, head) row in
-ONE launch, updating the state in place.  ``LAUNCHES`` counts kernel
-launches by kernel name (the reference's ``TRACE_COUNTS``).
+ONE launch, updating the state in place.  AHLA: ``ahla_prefill`` and
+``ahla_decode_step`` likewise; ``ahla_attention`` is the stateless
+full-sequence path, forward only on the card (no backward kernel yet).
+``LAUNCHES`` counts kernel launches by kernel name (the reference's
+``TRACE_COUNTS``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _build
 from ._build import LAUNCHES
+from ..core.ahla import AHLAState
 from ..core.hla2 import HLA2State
-from .decode_step import hla2_step
+from .ahla_chunk import ahla_chunk_fwd
+from .decode_step import ahla_step, hla2_step
 from .hla2_chunk import hla2_chunk_bwd, hla2_chunk_fwd
 
-__all__ = ["LAUNCHES", "hla2_attention", "hla2_prefill", "hla2_decode_step"]
+__all__ = ["LAUNCHES", "hla2_attention", "hla2_prefill", "hla2_decode_step",
+           "ahla_attention", "ahla_prefill", "ahla_decode_step"]
 
 
 def _rows_gamma(gamma, B, H, device, dtype=torch.float32):
@@ -105,4 +112,63 @@ def hla2_decode_step(state: HLA2State, q_t, k_t, v_t, gamma=None, *,
     o = hla2_step(views, _rows(q_t), _rows(k_t), _rows(v_t),
                   _rows_gamma(gamma, B, H, q_t.device),
                   normalize=normalize, eps=eps, lam=lam)
+    return state, o.reshape(B, H, -1)
+
+
+def ahla_attention(q, k, v, gamma=None, *, normalize: bool = False,
+                   eps: float = 1e-6):
+    """AHLA over ``(B, H, n, d)`` tensors, stateless: one chunkwise forward
+    launch.  Returns ``o (B, H, n, dv)`` in ``v.dtype``.
+
+    On CPU tensors this is the plain chunkwise path, differentiable through
+    autograd.  On the card there is no backward kernel yet: where a
+    gradient would be needed it raises before any launch."""
+    if q.device.type == "cuda":
+        _build.refuse_grad("ops.ahla_attention", [
+            x for x in (q, k, v, gamma) if isinstance(x, torch.Tensor)])
+    B, H, n, _ = q.shape
+    g = _rows_gamma(gamma, B, H, q.device,
+                    torch.promote_types(q.dtype, torch.float32))
+    o, _ = ahla_chunk_fwd(_rows(q), _rows(k), _rows(v), g,
+                          normalize=normalize, eps=eps)
+    return o.reshape(B, H, n, -1)
+
+
+def ahla_prefill(q, k, v, gamma=None, *, state: AHLAState | None = None,
+                 normalize: bool = False, eps: float = 1e-6):
+    """Chunk-parallel AHLA prefill over ``(B, H, n, d)``.  Returns
+    ``(o, AHLAState)`` with fp32 state leaves ``(B, H, ...)``; ``state`` (if
+    given) is the carry to resume from and is not modified.  One kernel
+    launch computes ``o`` and ``(P, m, E, n)``; the undecayed cross moment
+    ``R = R0 + K^T Q`` is a plain product outside it, as in the
+    reference."""
+    B, H, n, _ = q.shape
+    init = None if state is None else tuple(
+        _rows(x.to(torch.float32)) for x in (state.P, state.m, state.E,
+                                             state.n))
+    o, (P, m, E, nn) = ahla_chunk_fwd(
+        _rows(q), _rows(k), _rows(v), _rows_gamma(gamma, B, H, q.device),
+        initial_state=init, normalize=normalize, eps=eps)
+    R = k.to(torch.float32).mT @ q.to(torch.float32)
+    if state is not None:
+        R = R + state.R.to(torch.float32)
+
+    def unm(x):
+        return x.reshape((B, H) + x.shape[1:])
+
+    return (o.reshape(B, H, n, -1),
+            AHLAState(R, unm(P), unm(m), unm(E), unm(nn)))
+
+
+def ahla_decode_step(state: AHLAState, q_t, k_t, v_t, gamma=None, *,
+                     normalize: bool = False, eps: float = 1e-6):
+    """One AHLA decode token over ``(B, H, d)`` rows.  **Updates ``state``
+    in place** (its fp32 leaves must be contiguous ``(B, H, ...)`` tensors)
+    and returns ``(state, o_t)`` with ``o_t (B, H, dv)``."""
+    B, H, _ = q_t.shape
+    # views, not copies: the kernel's in-place writes land in ``state``
+    views = tuple(x.view((B * H,) + x.shape[2:]) for x in state)
+    o = ahla_step(views, _rows(q_t), _rows(k_t), _rows(v_t),
+                  _rows_gamma(gamma, B, H, q_t.device),
+                  normalize=normalize, eps=eps)
     return state, o.reshape(B, H, -1)

@@ -10,6 +10,9 @@ stand in for traffic.  Runs on the card by default:
 and on the CPU (plain versions of the kernels) with ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+``--mixer ahla`` swaps the arch's sequence op for AHLA (same weights
+layout, its own kernels).
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from ..serving.sampling import SamplingConfig
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="hla-1b")
+    ap.add_argument("--mixer", default=None,
+                    help="override the arch's sequence op with a registered "
+                         "one (hla2, ahla)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
@@ -46,7 +52,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, reduced=args.reduced)
+    cfg = get_config(args.arch, reduced=args.reduced, mixer=args.mixer)
     device = torch.device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"

@@ -4,7 +4,8 @@ Minimal twin of ``repro/models/seq_op.py``: a record carries the sublayer's
 ``specs``, full-sequence ``forward`` (train / chunk-parallel prefill),
 one-token ``step`` (decode) and ``init_state``; ``lm.py`` and the serving
 engine program against the record only, and a layer keeps the record's
-parameters under ``"mixer"``.  The port registers ``hla2``.
+parameters under ``"mixer"``.  The port registers ``hla2`` and ``ahla``
+(``models/mixer.py``).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def register_op(op: SequenceOp) -> SequenceOp:
 
 def op_for(cfg) -> SequenceOp:
     """The registered operator ``cfg.mixer`` names."""
-    from . import mixer  # noqa: F401  (registers hla2)
+    from . import mixer  # noqa: F401  (registers hla2 and ahla)
 
     if cfg.mixer not in _REGISTRY:
         raise KeyError(f"unknown sequence op {cfg.mixer!r}; registered ops: "
