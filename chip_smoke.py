@@ -5,17 +5,17 @@
 
 Phases, each of which raises on failure (exit code nonzero, no result line):
 
-1. build the hand-written kernels from ``src/repro_torch/csrc`` (five:
-   the HLA2 chunkwise forward, decode step and chunkwise backward, the AHLA
-   chunkwise forward and decode step; one nvcc per source, all at once) and
-   print nvcc's register report;
+1. build the hand-written kernels from ``src/repro_torch/csrc`` (six: the
+   HLA2 chunkwise forward, decode step and chunkwise backward, the AHLA
+   chunkwise forward, decode step and chunkwise backward; one nvcc per
+   source, all at once) and print nvcc's register report;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (hla-1b rows, head dim 128): the forwards and the
-   steps at serving shapes, the HLA2 forward's checkpoints and the backward
-   at the train phase's (32 rows x 2048 tokens);
+   steps at serving shapes, the forwards' checkpoints and the backwards at
+   the train phase's (32 rows x 2048 tokens);
 3. check the port against its plain path on a small model (card vs CPU):
-   prefill + decode logits with either mixer, and the training loss and
-   every parameter's gradient; and at full width that prefill(L) + one
+   prefill + decode logits, and the training loss and every parameter's
+   gradient, with either mixer; and at full width that prefill(L) + one
    decode step equals prefill(L + 1) for hla-1b with either mixer (24
    layers, seeded random weights, fp32);
 4. serve 8 hla-1b requests through the port's ``Engine`` (bf16, 4 slots),
@@ -23,8 +23,9 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    the kernel launches of each run and time the chunk kernel's launches in
    it;
 5. train hla-1b at full width and depth for 5 AdamW steps on one repeated
-   2 x 2048 batch, count the kernel launches of that run (24 forward + 24
-   backward per step, no plain version) and check the loss falls;
+   2 x 2048 batch, once with either mixer, count the kernel launches of
+   each run (24 forward + 24 backward per step of its mixer's kernels, no
+   other, no plain version) and check the loss falls;
 6. time each kernel and its plain version at its path's shapes.
 
 The second-to-last line is the ``kernels`` JSON, the last line
@@ -68,6 +69,7 @@ STEP_SRC = "src/repro_torch/csrc/hla2_step.cu"
 BWD_SRC = "src/repro_torch/csrc/hla2_chunk_bwd.cu"
 AHLA_CHUNK_SRC = "src/repro_torch/csrc/ahla_chunk_fwd.cu"
 AHLA_STEP_SRC = "src/repro_torch/csrc/ahla_step.cu"
+AHLA_BWD_SRC = "src/repro_torch/csrc/ahla_chunk_bwd.cu"
 
 
 # the card's name and power limit, printed beside every number
@@ -365,6 +367,59 @@ def check_ahla_step(device, rows=64, d=128, n_prior=300, steps=4):
     return main_abs
 
 
+def check_ahla_chunk_bwd(device, rows=32, d=128, ns=(2048, 300),
+                         small=False):
+    """ahla_chunk_fwd's checkpoints and ahla_chunk_bwd vs their plain
+    versions, at the train phase's rows.  ``small`` adds the normalize
+    cases (run it at d = 16: the reduced model's heads).  Returns the max
+    absolute errors of the main-path case (bf16, first n, gamma): of
+    dq/dk/dv, and of the forward's output and checkpoints."""
+    import torch
+
+    from repro_torch.kernels.ahla_chunk import (
+        ahla_chunk_bwd, ahla_chunk_bwd_plain, ahla_chunk_fwd,
+        ahla_chunk_fwd_plain)
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(dt, n, True, False) for dt in (bf, f32) for n in ns]
+    cases += [(dt, ns[-1], False, False) for dt in (bf, f32)]
+    if small:
+        cases += [(f32, n, True, True) for n in ns]
+        cases += [(f32, ns[0], False, True), (bf, ns[0], True, True)]
+    main_abs = None
+    for dt, n, use_gamma, norm in cases:
+        q, k, v, g = _inputs(gen, rows, n, d, d, dt, device, positive=norm)
+        g = g if use_gamma else None
+        do = torch.randn(v.shape, generator=gen, device=device).to(dt)
+        o_k, _, ck_k = ahla_chunk_fwd(q, k, v, g, save_chunk_states=True,
+                                      normalize=norm)
+        o_p, _, ck_p = ahla_chunk_fwd_plain(q, k, v, g,
+                                            save_chunk_states=True,
+                                            normalize=norm)
+        got = ahla_chunk_bwd(q, k, v, g, do, ck_k, normalize=norm)
+        want = ahla_chunk_bwd_plain(q, k, v, g, do, ck_p, normalize=norm)
+        e_ck = max(rel_err(a, b) for a, b in zip(ck_k, ck_p))
+        e_o = rel_err(o_k, o_p)
+        e_x = max(rel_err(a, b) for a, b in zip(got[:3], want[:3]))
+        e_g = rel_err(got[3], want[3]) if use_gamma else 0.0
+        tol = TOL_BF16 if dt == bf else TOL_FP32
+        log(f"ahla_chunk_bwd {str(dt)[6:]} rows={rows} n={n} d={d} "
+            f"gamma={use_gamma} normalize={norm}: dq/dk/dv rel {e_x:.2e} "
+            f"(tol {tol:.0e}), dgamma rel {e_g:.2e} (tol {TOL_DGAMMA:.0e}), "
+            f"forward o rel {e_o:.2e} (tol {tol:.0e}), checkpoints rel "
+            f"{e_ck:.2e} (tol {TOL_FP32:.0e})")
+        if not (e_x <= tol and e_g <= TOL_DGAMMA and e_ck <= TOL_FP32
+                and e_o <= tol):
+            raise AssertionError("ahla_chunk_bwd or the checkpoints disagree "
+                                 "with the plain versions")
+        if main_abs is None:
+            main_abs = (max(abs_err(a, b) for a, b in zip(got[:3], want[:3])),
+                        max(abs_err(a, b) for a, b in
+                            zip((o_k,) + ck_k, (o_p,) + ck_p)))
+    return main_abs
+
+
 # --------------------------------------------------------------------------
 # phase 3: the model, against its plain path and against itself
 # --------------------------------------------------------------------------
@@ -412,10 +467,10 @@ def _loss_grads(params, batch, cfg):
     return loss.detach(), torch.autograd.grad(loss, flat)
 
 
-def check_small_train(device):
-    """Reduced hla-1b (fp32): the loss and every parameter's gradient on
-    ``device`` (forward and backward kernels) vs on the CPU (plain
-    versions), same weights and batch."""
+def check_small_train(device, mixer=None):
+    """Reduced hla-1b (fp32, its own mixer or ``mixer``): the loss and every
+    parameter's gradient on ``device`` (forward and backward kernels) vs on
+    the CPU (plain versions), same weights and batch."""
     import torch
 
     from repro_torch.configs import get_config
@@ -423,7 +478,7 @@ def check_small_train(device):
     from repro_torch.models import lm
     from repro_torch.models.param import init_params, leaf_paths
 
-    cfg = get_config("hla-1b", reduced=True)
+    cfg = get_config("hla-1b", reduced=True, mixer=mixer)
     p_cpu = init_params(lm.lm_specs(cfg), 0, "cpu")
     host = SyntheticStream(DataConfig(cfg.vocab, 150, 2, seed=6)).batch(0)
     out = []
@@ -436,7 +491,8 @@ def check_small_train(device):
     errs = {"/".join(path): rel_err(a, b) for (path, _), a, b in
             zip(leaf_paths(p_cpu), g_k, g_p)}
     worst = max(errs, key=errs.get)
-    log(f"reduced hla-1b fp32 train loss, 2 x 150 tokens: {device} kernels "
+    log(f"reduced hla-1b ({cfg.mixer}) fp32 train loss, 2 x 150 tokens: "
+        f"{device} kernels "
         f"vs cpu plain: loss {float(l_k):.6f} rel {e_l:.2e}, gradients of "
         f"{len(errs)} leaves rel <= {errs[worst]:.2e} ({worst}) (tol "
         f"{TOL_FP32:.0e})")
@@ -581,23 +637,32 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
 # --------------------------------------------------------------------------
 
 
-def train(device, steps=5, batch=2, seq=2048):
-    """AdamW steps of full-width hla-1b (24 layers, bf16 activations, fp32
-    parameters and moments) on one repeated synthetic batch.  Returns the
-    launch counts of the run and its summary numbers."""
+# each mixer's training kernels: (module under repro_torch.kernels, forward,
+# backward)
+TRAIN_KERNELS = {"hla2": ("hla2_chunk", "hla2_chunk_fwd", "hla2_chunk_bwd"),
+                 "ahla": ("ahla_chunk", "ahla_chunk_fwd", "ahla_chunk_bwd")}
+
+
+def train(device, mixer="hla2", steps=5, batch=2, seq=2048):
+    """AdamW steps of full-width hla-1b with ``mixer`` (24 layers, bf16
+    activations, fp32 parameters and moments) on one repeated synthetic
+    batch.  Returns the launch counts of the run and its summary numbers."""
+    import importlib
+
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.distributed.steps import make_train_step
-    from repro_torch.kernels import hla2_chunk
     from repro_torch.kernels.ops import LAUNCHES
     from repro_torch.models import lm
     from repro_torch.models.param import init_params
     from repro_torch.optim import adamw
 
-    cfg = get_config("hla-1b")
+    cfg = get_config("hla-1b", mixer=mixer)
+    mod_name, fwd, bwd = TRAIN_KERNELS[mixer]
+    mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
     params = init_params(lm.lm_specs(cfg), 0, device)
     # with one warmup step, the default lr 3e-4 moves every weight by ~lr
     # at once: on this random-weight model the loss rose 11.0 -> 18.2 and
@@ -611,14 +676,14 @@ def train(device, steps=5, batch=2, seq=2048):
     # count calls of the plain versions too: the run must make none
     plain_calls = []
     originals = {}
-    for name in ("hla2_chunk_fwd_plain", "hla2_chunk_bwd_plain"):
-        fn = originals[name] = getattr(hla2_chunk, name)
+    for name in (f"{fwd}_plain", f"{bwd}_plain"):
+        fn = originals[name] = getattr(mod, name)
 
         def counted(*a, _fn=fn, _name=name, **kw):
             plain_calls.append(_name)
             return _fn(*a, **kw)
 
-        setattr(hla2_chunk, name, counted)
+        setattr(mod, name, counted)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     LAUNCHES.clear()  # count the main path only
@@ -632,13 +697,13 @@ def train(device, steps=5, batch=2, seq=2048):
             norms.append(float(m["grad_norm"]))
     finally:
         for name, fn in originals.items():
-            setattr(hla2_chunk, name, fn)
+            setattr(mod, name, fn)
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     p50 = float(np.percentile(step_s, 50))
-    log(f"trained {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.dtype} activations, fp32 parameters and moments) for {steps} "
-        f"AdamW steps on one {batch} x {seq} batch: loss "
+    log(f"trained {cfg.name} ({cfg.mixer}; {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.dtype} activations, fp32 parameters and "
+        f"moments) for {steps} AdamW steps on one {batch} x {seq} batch: loss "
         f"{' '.join(f'{x:.4f}' for x in losses)} | grad norm "
         f"{' '.join(f'{x:.3f}' for x in norms)} | step "
         f"{' '.join(f'{x:.3f}' for x in step_s)} s | step p50 {p50:.3f}s "
@@ -648,8 +713,7 @@ def train(device, steps=5, batch=2, seq=2048):
         raise AssertionError("non-finite loss or gradient norm")
     if not losses[-1] < losses[0]:
         raise AssertionError("the loss did not fall on the repeated batch")
-    want = {"hla2_chunk_fwd": cfg.n_layers * steps,
-            "hla2_chunk_bwd": cfg.n_layers * steps}
+    want = {fwd: cfg.n_layers * steps, bwd: cfg.n_layers * steps}
     if launches != want or plain_calls:
         raise AssertionError(f"kernel launches {launches}, want {want}; "
                              f"plain calls {plain_calls}")
@@ -784,6 +848,37 @@ def ahla_chunk_fmas(n, d, dv, w=64, has_init=False):
     return bf16, fp32
 
 
+def ahla_chunk_bwd_fmas(n, d, dv, w=64):
+    """FMAs one row of ahla_chunk_bwd needs for bf16 inputs (gamma, no
+    normalize), split by operand type: ``(bf16 x bf16, fp32)``.
+
+    Per chunk of r tokens, the products of the adjoint in
+    ``chunk_math.ahla_chunk_math_bwd``, with only the causal triangles of
+    the masked ones and without the den column (its cotangents are zero
+    unnormalised).  Left out where the data makes them zero or unused:
+    products with the carry on the first chunk (its checkpoint is zero) and
+    the carry cotangent it would hand back (the forward's initial carry is
+    no input), and products with the incoming carry cotangent on the last
+    chunk (the final carry's cotangent is zero).  Q K^T multiplies two
+    inputs (bf16); every other product has an fp32 operand.
+    """
+    bf16 = fp32 = 0
+    for c0 in range(0, n, w):
+        r = min(w, n - c0)
+        first, last = c0 == 0, c0 + r == n
+        tri = r * (r + 1) // 2
+        bf16 += tri * d               # Q K^T
+        # A V, A^T dO, dO R^T, dR V^T, A^T dR; (dA . Lg) K, (dA . Lg)^T Q
+        fp32 += 5 * tri * dv + 2 * tri * d
+        if not first:  # Q P0, Q E0, dO E0^T, dR P0^T; the dP, dE updates
+            fp32 += 6 * r * d * dv
+        if not last:  # K dE1, K dP1, V dP1^T, R dE1^T
+            fp32 += 4 * r * d * dv
+        if not (first or last):  # d rho: <dP1, P0> + <dE1, E0>
+            fp32 += 2 * d * dv
+    return bf16, fp32
+
+
 def _bound(nbytes, bf16_fma, fp32_fma, rows):
     t_b = 1e3 * nbytes / PEAK_BYTES_S
     t_f = 1e3 * 2 * rows * (bf16_fma / PEAK_BF16_FLOP_S
@@ -791,59 +886,65 @@ def _bound(nbytes, bf16_fma, fp32_fma, rows):
     return max(t_b, t_f), "bytes" if t_b > t_f else "operations"
 
 
-def time_train_kernels(device, bwd_abs, ckpt_abs, launches, rows=32, n=2048,
-                       d=128):
-    """The forward with checkpoints and the backward, and their plain
-    versions, at the train phase's shapes (bf16 inputs, gamma)."""
+def time_train_kernels(device, mixer, bwd_abs, ckpt_abs, launches, rows=32,
+                       n=2048, d=128):
+    """``mixer``'s forward with checkpoints and its backward, and their
+    plain versions, at the train phase's shapes (bf16 inputs, gamma)."""
+    import importlib
+
     import torch
 
-    from repro_torch.kernels.hla2_chunk import (
-        hla2_chunk_bwd, hla2_chunk_bwd_plain, hla2_chunk_fwd,
-        hla2_chunk_fwd_plain)
-
+    mod_name, fwd_name, bwd_name = TRAIN_KERNELS[mixer]
+    mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+    fwd, fwd_plain = getattr(mod, fwd_name), getattr(mod, f"{fwd_name}_plain")
+    bwd, bwd_plain = getattr(mod, bwd_name), getattr(mod, f"{bwd_name}_plain")
     gen = torch.Generator(device=device).manual_seed(7)
     q, k, v, g = _inputs(gen, rows, n, d, d, torch.bfloat16, device)
     do = torch.randn(v.shape, generator=gen, device=device).to(v.dtype)
-    ms_f = median_ms(lambda i: hla2_chunk_fwd(q, k, v, g,
-                                              save_chunk_states=True), 10)
-    plain_f = median_ms(lambda i: hla2_chunk_fwd_plain(
-        q, k, v, g, save_chunk_states=True), 3)
-    _, _, ck = hla2_chunk_fwd(q, k, v, g, save_chunk_states=True)
-    ms_b = median_ms(lambda i: hla2_chunk_bwd(q, k, v, g, do, ck), 10)
-    plain_b = median_ms(lambda i: hla2_chunk_bwd_plain(q, k, v, g, do, ck), 3)
-    nc = -(-n // 64)
-    ck_bytes = 4 * rows * nc * (3 * d * d + 2 * d)
-    st_bytes = 4 * rows * (3 * d * d + 2 * d)
+    ms_f = median_ms(lambda i: fwd(q, k, v, g, save_chunk_states=True), 10)
+    plain_f = median_ms(lambda i: fwd_plain(q, k, v, g,
+                                            save_chunk_states=True), 3)
+    _, st, ck = fwd(q, k, v, g, save_chunk_states=True)
+    ms_b = median_ms(lambda i: bwd(q, k, v, g, do, ck), 10)
+    plain_b = median_ms(lambda i: bwd_plain(q, k, v, g, do, ck), 3)
+    st_bytes = 4 * sum(x.numel() for x in st)  # the final carry, fp32
+    ck_bytes = 4 * sum(x.numel() for x in ck)  # the checkpoints, fp32
     io = 2 * rows * n * 4 * d  # q, k, v and o (or do), bf16
-    bf_f, f32_f = chunk_fmas(n, d, d)
+    fwd_fmas, bwd_fmas = {
+        "hla2": (chunk_fmas, chunk_bwd_fmas),
+        "ahla": (ahla_chunk_fmas, ahla_chunk_bwd_fmas)}[mixer]
+    bf_f, f32_f = fwd_fmas(n, d, d)
     bound_f, by_f = _bound(io + st_bytes + ck_bytes + 4 * rows, bf_f, f32_f,
                            rows)
-    bf_b, f32_b = chunk_bwd_fmas(n, d, d)
+    bf_b, f32_b = bwd_fmas(n, d, d)
     # q, k, v, do in; dq, dk, dv out (bf16); checkpoints in; gamma, dgamma
     bound_b, by_b = _bound(io + 2 * rows * n * 3 * d + ck_bytes + 8 * rows,
                            bf_b, f32_b, rows)
-    fwd = dict(
-        name="hla2_chunk_fwd[save_chunk_states]", route="cuda",
-        source=CHUNK_SRC, replaces="src/repro/kernels/hla2_chunk.py:176",
-        launches=launches.get("hla2_chunk_fwd", 0), max_abs_err=ckpt_abs,
-        ms=ms_f, plain_ms=plain_f, bound_ms=bound_f, bound_by=by_f,
-        library_ms=None)
-    bwd = dict(
-        name="hla2_chunk_bwd", route="cuda", source=BWD_SRC,
-        replaces="src/repro/kernels/hla2_chunk.py:378",
-        launches=launches.get("hla2_chunk_bwd", 0), max_abs_err=bwd_abs,
-        ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b,
-        library_ms=None)
-    log(f"hla2_chunk_fwd with checkpoints at rows {rows} n {n} d {d}, bf16 "
+    fwd_src, bwd_src, fwd_line, bwd_line = {
+        "hla2": (CHUNK_SRC, BWD_SRC, "src/repro/kernels/hla2_chunk.py:176",
+                 "src/repro/kernels/hla2_chunk.py:378"),
+        "ahla": (AHLA_CHUNK_SRC, AHLA_BWD_SRC,
+                 "src/repro/kernels/ahla_chunk.py:100",
+                 "src/repro/kernels/ahla_chunk.py:284")}[mixer]
+    log(f"{fwd_name} with checkpoints at rows {rows} n {n} d {d}, bf16 "
         f"in: {ms_f:.4f} ms, plain {plain_f:.4f} ms, bound {bound_f:.4f} ms "
         f"({by_f}: {2 * rows * bf_f / 1e9:.3f} GFLOP bf16 x bf16 + "
         f"{2 * rows * f32_f / 1e9:.3f} GFLOP fp32; checkpoints "
         f"{ck_bytes / 1e6:.1f} MB)")
-    log(f"hla2_chunk_bwd at rows {rows} n {n} d {d}, bf16 in: {ms_b:.4f} ms, "
+    log(f"{bwd_name} at rows {rows} n {n} d {d}, bf16 in: {ms_b:.4f} ms, "
         f"plain {plain_b:.4f} ms, bound {bound_b:.4f} ms ({by_b}: "
         f"{2 * rows * bf_b / 1e9:.3f} GFLOP bf16 x bf16 at 989 TFLOP/s + "
         f"{2 * rows * f32_b / 1e9:.3f} GFLOP fp32 at 67 TFLOP/s)")
-    return [fwd, bwd]
+    return [
+        dict(name=f"{fwd_name}[save_chunk_states]", route="cuda",
+             source=fwd_src, replaces=fwd_line,
+             launches=launches.get(fwd_name, 0), max_abs_err=ckpt_abs,
+             ms=ms_f, plain_ms=plain_f, bound_ms=bound_f, bound_by=by_f,
+             library_ms=None),
+        dict(name=bwd_name, route="cuda", source=bwd_src, replaces=bwd_line,
+             launches=launches.get(bwd_name, 0), max_abs_err=bwd_abs,
+             ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b,
+             library_ms=None)]
 
 
 def time_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
@@ -994,7 +1095,8 @@ def main() -> int:
               ("hla2_step", decode_step._SIG),
               ("hla2_chunk_bwd", hla2_chunk._BWD_SIG),
               ("ahla_chunk_fwd", ahla_chunk._SIG),
-              ("ahla_step", decode_step._AHLA_SIG)]
+              ("ahla_step", decode_step._AHLA_SIG),
+              ("ahla_chunk_bwd", ahla_chunk._BWD_SIG)]
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source
         list(pool.map(lambda a: _build.load(*a), builds))
     log(f"built {len(builds)} kernels in {time.perf_counter() - t0:.1f}s")
@@ -1013,11 +1115,14 @@ def main() -> int:
     ahla_step_abs = check_ahla_step(device)
     check_ahla_chunk(device, rows=8, d=16, ns=(130, 7))
     check_ahla_step(device, rows=8, d=16, n_prior=70)
+    ahla_bwd_abs, ahla_ckpt_abs = check_ahla_chunk_bwd(device)
+    check_ahla_chunk_bwd(device, rows=8, d=16, ns=(130, 7), small=True)
     torch.cuda.synchronize()
 
     check_small_model(device)
     check_small_model(device, mixer="ahla")
     check_small_train(device)
+    check_small_train(device, mixer="ahla")
     cfg = get_config("hla-1b")
     ahla_cfg = get_config("hla-1b", mixer="ahla")
     # the two mixers share one parameter layout: one set of weights serves
@@ -1029,10 +1134,14 @@ def main() -> int:
     ahla_launches, _ = serve(params, ahla_cfg, device)
     del params
     train_launches, _ = train(device)
+    ahla_train_launches, _ = train(device, mixer="ahla")
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
-    kernels += time_train_kernels(device, bwd_abs, ckpt_abs, train_launches)
+    kernels += time_train_kernels(device, "hla2", bwd_abs, ckpt_abs,
+                                  train_launches)
     kernels += time_ahla_kernels(device, ahla_chunk_abs, ahla_step_abs,
                                  ahla_launches)
+    kernels += time_train_kernels(device, "ahla", ahla_bwd_abs, ahla_ckpt_abs,
+                                  ahla_train_launches)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,7 @@
 // Chunkwise AHLA forward for Hopper (sm_90a): prompt prefill.
 //
 // Replaces: src/repro/kernels/ahla_chunk.py, ahla_chunk_pallas (body
-// _ahla_chunk_kernel), forward with initial_state; save_chunk_states is not
-// ported yet (it comes with the backward kernel).
+// _ahla_chunk_kernel), with initial_state and save_chunk_states.
 //
 // Computes, per (batch*head) row, AHLA = LinAttn(q, k, LinAttn(q, k, v))
 // chunk by chunk with the carries [P | m] and [E | n], optional initial
@@ -30,7 +29,10 @@
 // whole prompt: the carry never goes back to device memory between chunks,
 // and no CTA reads what another writes (the initial carry is a separate
 // input, the final carry is written once at the end; the first column tile
-// writes m and n).  Q K^T and the vectors s, den, m, n are computed by every
+// writes m and n).  For training each CTA also writes its columns of every
+// chunk's incoming carry to the checkpoints [P | m], [E | n] (BH, nc, d,
+// dv + 1: the reference's layout); the first column tile writes their den
+// column (m, n).  Q K^T and the vectors s, den, m, n are computed by every
 // CTA of a row: r x r x d and r x d per chunk, small beside the r x 32 x
 // (d + r) products.  Every product is a register-tiled SIMT loop (tile_mm).
 // A ragged tail is one shorter chunk of length r with its own decay powers
@@ -111,6 +113,7 @@ __global__ void __launch_bounds__(THREADS)
                           const float* __restrict__ n0, T* __restrict__ o,
                           float* __restrict__ P, float* __restrict__ m,
                           float* __restrict__ E, float* __restrict__ nv,
+                          float* __restrict__ Pc, float* __restrict__ Ec,
                           int n, int d, int dv, int normalize, float eps) {
   extern __shared__ float smem[];
   const int dp = d + 1, wp = W + 1, cp = CW + 1;
@@ -165,6 +168,19 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = tid; i < r * ew; i += THREADS) {
       const int t = i / ew, e = i - t * ew;
       Vs[t * cp + e] = to_f(v[(size_t)(c0 + t) * dv + e0 + e]);
+    }
+    if (Pc) {  // checkpoint the chunk's incoming carry: this CTA's columns
+      const size_t ck = (row * ((n + W - 1) / W) + c0 / W) * d * (dv + 1);
+      for (int i = tid; i < d * ew; i += THREADS) {
+        const int a = i / ew, e = i - a * ew;
+        Pc[ck + (size_t)a * (dv + 1) + e0 + e] = Ps[a * cp + e];
+        Ec[ck + (size_t)a * (dv + 1) + e0 + e] = Es[a * cp + e];
+      }
+      if (blockIdx.y == 0)
+        for (int a = tid; a < d; a += THREADS) {
+          Pc[ck + (size_t)a * (dv + 1) + dv] = ms[a];
+          Ec[ck + (size_t)a * (dv + 1) + dv] = ns[a];
+        }
     }
     __syncthreads();
     const float rho = gp[r];
@@ -275,8 +291,9 @@ size_t smem_bytes(int d) {
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* gamma, const float* const* init, void* o,
-                   float* const* out, int BH, int n, int d, int dv,
-                   int normalize, float eps, cudaStream_t stream) {
+                   float* const* out, float* Pc, float* Ec, int BH, int n,
+                   int d, int dv, int normalize, float eps,
+                   cudaStream_t stream) {
   auto kern = ahla_chunk_fwd_kernel<T>;
   const size_t smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
@@ -286,8 +303,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), gamma, init[0], init[1], init[2], init[3],
-      static_cast<T*>(o), out[0], out[1], out[2], out[3], n, d, dv, normalize,
-      eps);
+      static_cast<T*>(o), out[0], out[1], out[2], out[3], Pc, Ec, n, d, dv,
+      normalize, eps);
   return cudaGetLastError();
 }
 
@@ -299,23 +316,24 @@ extern "C" {
 // gamma: (BH,) fp32 or null; P0, m0, E0, n0: the fp32 initial carry
 // ((BH, d, dv), (BH, d), (BH, d, dv), (BH, d)), all four null for a zero
 // carry, only read; P, m, E, n: fp32 buffers of the same shapes that
-// receive the final carry.  Returns the CUDA error of the launch
-// (0 = launched).
+// receive the final carry; Pc, Ec: fp32 (BH, ceil(n / 64), d, dv + 1)
+// buffers that receive each chunk's incoming [P | m] and [E | n], or both
+// null.  Returns the CUDA error of the launch (0 = launched).
 int ahla_chunk_fwd(const void* q, const void* k, const void* v,
                    const float* gamma, const float* P0, const float* m0,
                    const float* E0, const float* n0, void* o, float* P,
-                   float* m, float* E, float* n_out, int BH, int n, int d,
-                   int dv, int is_bf16, int normalize, float eps, int device,
-                   void* stream) {
+                   float* m, float* E, float* n_out, float* Pc, float* Ec,
+                   int BH, int n, int d, int dv, int is_bf16, int normalize,
+                   float eps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* const init[4] = {P0, m0, E0, n0};
   float* const out[4] = {P, m, E, n_out};
-  err = is_bf16 ? launch<__nv_bfloat16>(q, k, v, gamma, init, o, out, BH, n,
-                                        d, dv, normalize, eps, s)
-                : launch<float>(q, k, v, gamma, init, o, out, BH, n, d, dv,
-                                normalize, eps, s);
+  err = is_bf16 ? launch<__nv_bfloat16>(q, k, v, gamma, init, o, out, Pc,
+                                        Ec, BH, n, d, dv, normalize, eps, s)
+                : launch<float>(q, k, v, gamma, init, o, out, Pc, Ec, BH, n,
+                                d, dv, normalize, eps, s);
   return (int)err;
 }
 

@@ -20,10 +20,10 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig):
 
     ``params`` is the fp32 parameter dict, ``batch`` holds ``tokens`` and
     ``labels`` (``(B, n)`` integer tensors on the parameters' device).  The
-    gradient comes from autograd through the model, whose HLA2 layers run
-    ``kernels.ops.hla2_attention`` (forward and backward kernels on the
-    card).  ``metrics`` holds the scalar tensors ``loss``, ``ce`` and
-    ``grad_norm`` and the float ``lr``.
+    gradient comes from autograd through the model, whose mixer layers run
+    ``kernels.ops.hla2_attention`` or ``ahla_attention`` (``cfg.mixer``:
+    forward and backward kernels on the card).  ``metrics`` holds the
+    scalar tensors ``loss``, ``ce`` and ``grad_norm`` and the float ``lr``.
     """
 
     def train_step(params, opt_state, batch):

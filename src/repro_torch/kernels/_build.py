@@ -94,14 +94,12 @@ def refuse_grad(name: str, tensors) -> None:
     """Raise where autograd would record a raw kernel call: the kernels
     write through raw pointers, so their outputs would carry no graph and
     the leaves behind them would silently get no gradient.  The message
-    names the differentiable entry point of the kernel's operator, or says
-    that it has none yet."""
+    names the differentiable entry point of the kernel's operator."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        hint = ("AHLA has no backward kernel yet; call it" if "ahla" in name
-                else "differentiate through "
-                "repro_torch.kernels.ops.hla2_attention, or call it")
+        op = "ahla_attention" if name.startswith("ahla") else "hla2_attention"
         raise RuntimeError(
-            f"{name}: the raw CUDA kernel records no backward; {hint} under "
+            f"{name}: the raw CUDA kernel records no backward; differentiate "
+            f"through repro_torch.kernels.ops.{op}, or call it under "
             "torch.no_grad() or on tensors that do not require grad")
 
 

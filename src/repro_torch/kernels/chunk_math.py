@@ -97,6 +97,27 @@ def hla2_chunk_math(Q, K, V, state, g, *, normalize: bool, eps: float,
     return o, (S1, C1, m1, G1, h1)
 
 
+def _decay_grad(dLg, dp, dr, drho, w: int, logg):
+    """The cotangent of the decay ``g`` from those of the chunk's decay
+    powers: ``dLg`` of ``g^(t-j)``, ``dp`` of ``p[t] = g^(t+1)``, ``dr`` of
+    ``r[t] = g^(w-1-t)`` and ``drho`` of ``rho = g^w``.  Each derivative is
+    formed only where its exponent is >= 1 (t > j, t < w-1): no g^-1."""
+    t = torch.arange(w, device=dLg.device)
+    dt = dLg.dtype
+    diff = t[:, None] - t[None, :]
+    strict = diff > 0
+    e = torch.where(strict, diff - 1, 0).to(dt)
+    cL = torch.where(strict, diff.to(dt)
+                     * torch.exp(e * logg[..., None, None]), 0.0)
+    tv = t.to(dt)
+    cp = (tv + 1) * torch.exp(tv * logg[..., None])
+    cr = torch.where(t < w - 1, (w - 1 - tv)
+                     * torch.exp((w - 2 - tv).clamp_min(0) * logg[..., None]),
+                     0.0)
+    return ((dLg * cL).sum((-2, -1)) + (dp * cp).sum(-1)
+            + (dr * cr).sum(-1) + drho * w * torch.exp((w - 1) * logg))
+
+
 def hla2_chunk_math_bwd(Q, K, V, state, g, dO, dstate1, *, normalize: bool,
                         eps: float, lam: float):
     """Adjoint of ``hla2_chunk_math``, derived by hand: the twin of
@@ -238,20 +259,7 @@ def hla2_chunk_math_bwd(Q, K, V, state, g, dO, dstate1, *, normalize: bool,
     if lam:
         dLg = dLg + dWqq * QQ
 
-    # d/dg of g^(t-j) (t > j only: no g^-1 is formed), g^(t+1),
-    # g^(w-1-t) (t < w-1) and g^w
-    diff = t[:, None] - t[None, :]
-    strict = diff > 0
-    e = torch.where(strict, diff - 1, 0).to(Q.dtype)
-    cL = torch.where(strict, diff.to(Q.dtype)
-                     * torch.exp(e * logg[..., None, None]), 0.0)
-    tv = t.to(Q.dtype)
-    cp = (tv + 1) * torch.exp(tv * logg[..., None])
-    cr = torch.where(t < w - 1, (w - 1 - tv)
-                     * torch.exp((w - 2 - tv).clamp_min(0) * logg[..., None]),
-                     0.0)
-    dg = (dot(dLg, cL) + (dp * cp).sum(-1)
-          + (dr * cr).sum(-1) + drho * w * torch.exp((w - 1) * logg))
+    dg = _decay_grad(dLg, dp, dr, drho, w, logg)
     return dQ, dK, dV, (dS0, dC0, dm0, dG0, dh0), dg
 
 
@@ -285,3 +293,65 @@ def ahla_chunk_math(Q, K, V, state, g, *, normalize: bool, eps: float):
     rho = torch.exp(torch.log(g) * w)[..., None, None]
     Kg = pow_rev[..., None] * K
     return o, (rho * P0 + Kg.mT @ Vb, rho * E0 + Kg.mT @ R)
+
+
+def ahla_chunk_math_bwd(Q, K, V, state, g, dO, dstate1, *, normalize: bool,
+                        eps: float):
+    """Adjoint of ``ahla_chunk_math``, derived by hand: the twin of
+    ``jax.vjp(ahla_chunk_math)`` in ``repro/kernels/ahla_chunk.py``'s
+    backward kernel.
+
+    Given the cotangents ``dO`` of the output and ``dstate1 = (dP1, dE1)``
+    of the outgoing carry, returns ``(dQ, dK, dV, (dP0, dE0), dg)``.  Same
+    shapes and batching as ``ahla_chunk_math``.  With ``Ob = [O | den]``
+    the forward's widened output and ``dOb`` its cotangent (``[dO | 0]``
+    unnormalised; under ``normalize`` ``dO / z`` and ``-rowsum(dO . O) /
+    z^2`` with ``z = den + eps``):
+
+        dR  = A^T dOb + Kg dE1
+        dA  = dOb R^T + dR Vb^T          (then . Lg for d(Q K^T))
+        dQ  = (dA . Lg) K + p . (dOb E0^T + dR P0^T)
+        dK  = (dA . Lg)^T Q + r . (Vb dP1^T + R dE1^T)
+        dVb = A^T dR + Kg dP1
+        dP0 = rho dP1 + Q^T (p . dR),   dE0 = rho dE1 + Q^T (p . dOb)
+
+    Unnormalised, the den column's cotangents (of R, P, E) stay zero.
+    """
+    w = Q.shape[-2]
+    P0, E0 = state
+    dP1, dE1 = dstate1
+    ones = torch.ones(V.shape[:-1] + (1,), dtype=V.dtype, device=V.device)
+    Vb = torch.cat([V, ones], -1)
+    Lg, p, r = decay_mats(w, g)
+    logg = torch.log(g)
+    rho = torch.exp(logg * w)[..., None, None]
+    pc, rc = p[..., None], r[..., None]
+
+    # the forward's intermediates
+    QK = Q @ K.mT
+    A = QK * Lg
+    QP0, QE0 = Q @ P0, Q @ E0
+    R = pc * QP0 + A @ Vb
+    if normalize:
+        O = pc * QE0 + A @ R
+        z = O[..., -1:] + eps
+        dden = -(dO * O[..., :-1]).sum(-1, keepdim=True) / z**2
+        dOb = torch.cat([dO / z, dden], -1)
+    else:
+        dOb = torch.cat([dO, torch.zeros_like(ones)], -1)
+    Kg = rc * K
+
+    dR = A.mT @ dOb + Kg @ dE1
+    dA = dOb @ R.mT + dR @ Vb.mT
+    dQK = dA * Lg
+    dKg = Vb @ dP1.mT + R @ dE1.mT
+    dQ = dQK @ K + pc * (dOb @ E0.mT + dR @ P0.mT)
+    dK = dQK.mT @ Q + rc * dKg
+    dVb = A.mT @ dR + Kg @ dP1
+    dP0 = rho * dP1 + Q.mT @ (pc * dR)
+    dE0 = rho * dE1 + Q.mT @ (pc * dOb)
+    dg = _decay_grad(
+        dA * QK, (dOb * QE0).sum(-1) + (dR * QP0).sum(-1),
+        (dKg * K).sum(-1),
+        (dP1 * P0).sum((-2, -1)) + (dE1 * E0).sum((-2, -1)), w, logg)
+    return dQ, dK, dVb[..., :-1], (dP0, dE0), dg

@@ -165,29 +165,32 @@ def hla2_chunk_fwd(q, k, v, gamma=None, *, initial_state=None,
     return o, state
 
 
-def _check_bwd(q, k, v, gamma, do, chunk_states):
+def _check_bwd(q, k, v, gamma, do, chunk_states, ckpt_shapes=_state_shapes,
+               leaves="(S, C, m, G, h)"):
+    """Shared by the backward kernels' wrappers: the forward's inputs, ``do``
+    like ``v``, and the checkpoints, ``ckpt_shapes(BH, d, dv, nc)`` leaves
+    (named ``leaves`` in the error) over ``nc = ceil(n / W)`` chunks."""
     _check(q, k, v, gamma, None)
     BH, n, d = q.shape
     dv = v.shape[-1]
     if do.shape != v.shape or do.dtype != v.dtype or do.device != q.device:
         raise ValueError(f"want do like v {v.dtype} {tuple(v.shape)}, got "
                          f"{do.dtype} {tuple(do.shape)} on {do.device}")
-    if len(chunk_states) != 5:
-        raise ValueError("chunk_states is (S, C, m, G, h)")
-    for shape, x in zip(_state_shapes(BH, d, dv, -(-n // W)), chunk_states):
+    shapes = ckpt_shapes(BH, d, dv, -(-n // W))
+    if len(chunk_states) != len(shapes):
+        raise ValueError(f"chunk_states is {leaves}")
+    for shape, x in zip(shapes, chunk_states):
         if tuple(x.shape) != shape or x.dtype != _float(q) or \
                 x.device != q.device:
             raise ValueError(f"want {_float(q)} chunk states {shape}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def hla2_chunk_bwd_plain(q, k, v, gamma, do, chunk_states, *,
-                         normalize: bool = False, eps: float = 1e-6,
-                         lam: float = 0.0):
-    """Plain PyTorch version of the backward kernel: the chunks in reverse,
-    each through ``hla2_chunk_math_bwd`` in fp32 (fp64 for fp64 inputs)
-    from its checkpointed incoming carry.  The final carry's cotangent is
-    zero: the forward discards it."""
+def _walk_back(math_bwd, q, k, v, gamma, do, chunk_states, **kw):
+    """The plain backward of a chunkwise forward: the chunks in reverse,
+    each through ``math_bwd`` (a per-chunk adjoint of ``chunk_math``) in
+    fp32 (fp64 for fp64 inputs) from its checkpointed incoming carry.  The
+    final carry's cotangent is zero: the forward discards it."""
     ct = _float(q)
     BH, n, _ = q.shape
     g = torch.ones(BH, dtype=ct, device=q.device) if gamma is None \
@@ -197,16 +200,24 @@ def hla2_chunk_bwd_plain(q, k, v, gamma, do, chunk_states, *,
     dk, dv = torch.empty_like(dq), torch.empty(v.shape, dtype=ct,
                                                 device=q.device)
     dg = torch.zeros(BH, dtype=ct, device=q.device)
-    for c in reversed(range(len(chunk_states[0][0]))):
+    for c in reversed(range(chunk_states[0].shape[1])):
         sl = slice(c * W, min(c * W + W, n))
-        dq[:, sl], dk[:, sl], dv[:, sl], dstate, dgc = hla2_chunk_math_bwd(
+        dq[:, sl], dk[:, sl], dv[:, sl], dstate, dgc = math_bwd(
             q[:, sl].to(ct), k[:, sl].to(ct), v[:, sl].to(ct),
             tuple(x[:, c] for x in chunk_states), g, do[:, sl].to(ct),
-            dstate, normalize=normalize, eps=eps, lam=lam,
-        )
+            dstate, **kw)
         dg += dgc
     return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
             None if gamma is None else dg)
+
+
+def hla2_chunk_bwd_plain(q, k, v, gamma, do, chunk_states, *,
+                         normalize: bool = False, eps: float = 1e-6,
+                         lam: float = 0.0):
+    """Plain PyTorch version of the backward kernel: ``_walk_back`` through
+    ``hla2_chunk_math_bwd``."""
+    return _walk_back(hla2_chunk_math_bwd, q, k, v, gamma, do, chunk_states,
+                      normalize=normalize, eps=eps, lam=lam)
 
 
 def hla2_chunk_bwd(q, k, v, gamma, do, chunk_states, *,

@@ -6,9 +6,8 @@ chunk's incoming carry, ONE backward launch that walks them in reverse);
 ``hla2_prefill`` runs a whole prompt through ONE chunk-parallel kernel
 launch (optionally resuming from a carry) and returns the exact streaming
 state; ``hla2_decode_step`` applies one token to every (batch, head) row in
-ONE launch, updating the state in place.  AHLA: ``ahla_prefill`` and
-``ahla_decode_step`` likewise; ``ahla_attention`` is the stateless
-full-sequence path, forward only on the card (no backward kernel yet).
+ONE launch, updating the state in place.  AHLA: ``ahla_attention``,
+``ahla_prefill`` and ``ahla_decode_step`` likewise.
 ``LAUNCHES`` counts kernel launches by kernel name (the reference's
 ``TRACE_COUNTS``).
 """
@@ -17,11 +16,10 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
 from ._build import LAUNCHES
 from ..core.ahla import AHLAState
 from ..core.hla2 import HLA2State
-from .ahla_chunk import ahla_chunk_fwd
+from .ahla_chunk import ahla_chunk_bwd, ahla_chunk_fwd
 from .decode_step import ahla_step, hla2_step
 from .hla2_chunk import hla2_chunk_bwd, hla2_chunk_fwd
 
@@ -40,38 +38,36 @@ def _rows(x):
     return x.reshape((-1,) + x.shape[2:]).contiguous()
 
 
-class _HLA2Attention(torch.autograd.Function):
-    """Twin of ``_hla2_fwd_core``'s fused path (``_hla2_vjp_fwd`` /
-    ``_hla2_vjp_bwd``): the forward kernel saves the chunk checkpoints, the
-    backward kernel walks them in reverse."""
+class _ChunkAttention(torch.autograd.Function):
+    """The fused training path of a chunkwise operator, twin of the
+    reference's ``_hla2_vjp_fwd``/``_hla2_vjp_bwd`` and ``_ahla_vjp_fwd``/
+    ``_ahla_vjp_bwd``: the forward kernel ``fwd`` saves each chunk's
+    incoming carry, the backward kernel ``bwd`` walks them in reverse.
+    ``kw`` holds the operator's options, passed to both."""
 
     @staticmethod
-    def forward(ctx, q, k, v, gamma, normalize, eps, lam):
+    def forward(ctx, fwd, bwd, kw, q, k, v, gamma):
         B, H, n, _ = q.shape
         g = _rows_gamma(None if gamma is None else gamma.detach(), B, H,
                         q.device, torch.promote_types(q.dtype, torch.float32))
         rows = tuple(_rows(x.detach()) for x in (q, k, v))
         with torch.no_grad():
-            o, _, ckpt = hla2_chunk_fwd(
-                *rows, g, normalize=normalize, eps=eps, lam=lam,
-                save_chunk_states=True)
+            o, _, ckpt = fwd(*rows, g, save_chunk_states=True, **kw)
         ctx.save_for_backward(*rows, g, *ckpt)
-        ctx.meta = (B, H, normalize, eps, lam,
-                    None if gamma is None else gamma.shape)
+        ctx.meta = (bwd, kw, B, H, None if gamma is None else gamma.shape)
         return o.reshape(B, H, n, -1)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, g, *ckpt = ctx.saved_tensors
-        B, H, normalize, eps, lam, gshape = ctx.meta
-        dq, dk, dv, dg = hla2_chunk_bwd(
-            q, k, v, g, _rows(do.to(v.dtype)), tuple(ckpt),
-            normalize=normalize, eps=eps, lam=lam)
+        bwd, kw, B, H, gshape = ctx.meta
+        dq, dk, dv, dg = bwd(q, k, v, g, _rows(do.to(v.dtype)), tuple(ckpt),
+                             **kw)
         if gshape is not None:  # back through the (B*H,) broadcast
             dg = dg.reshape(B, H).sum_to_size(gshape)
-        return (dq.reshape(B, H, *dq.shape[1:]),
+        return (None, None, None, dq.reshape(B, H, *dq.shape[1:]),
                 dk.reshape(B, H, *dk.shape[1:]),
-                dv.reshape(B, H, *dv.shape[1:]), dg, None, None, None)
+                dv.reshape(B, H, *dv.shape[1:]), dg)
 
 
 def hla2_attention(q, k, v, gamma=None, *, normalize: bool = False,
@@ -80,7 +76,9 @@ def hla2_attention(q, k, v, gamma=None, *, normalize: bool = False,
     in ``q, k, v`` and ``gamma`` (broadcastable to ``(B, H)``): one
     chunkwise forward launch with checkpoints, one backward launch.
     Returns ``o (B, H, n, dv)`` in ``v.dtype``; no state."""
-    return _HLA2Attention.apply(q, k, v, gamma, normalize, eps, lam)
+    return _ChunkAttention.apply(
+        hla2_chunk_fwd, hla2_chunk_bwd,
+        dict(normalize=normalize, eps=eps, lam=lam), q, k, v, gamma)
 
 
 def hla2_prefill(q, k, v, gamma=None, *, state: HLA2State | None = None,
@@ -117,21 +115,13 @@ def hla2_decode_step(state: HLA2State, q_t, k_t, v_t, gamma=None, *,
 
 def ahla_attention(q, k, v, gamma=None, *, normalize: bool = False,
                    eps: float = 1e-6):
-    """AHLA over ``(B, H, n, d)`` tensors, stateless: one chunkwise forward
-    launch.  Returns ``o (B, H, n, dv)`` in ``v.dtype``.
-
-    On CPU tensors this is the plain chunkwise path, differentiable through
-    autograd.  On the card there is no backward kernel yet: where a
-    gradient would be needed it raises before any launch."""
-    if q.device.type == "cuda":
-        _build.refuse_grad("ops.ahla_attention", [
-            x for x in (q, k, v, gamma) if isinstance(x, torch.Tensor)])
-    B, H, n, _ = q.shape
-    g = _rows_gamma(gamma, B, H, q.device,
-                    torch.promote_types(q.dtype, torch.float32))
-    o, _ = ahla_chunk_fwd(_rows(q), _rows(k), _rows(v), g,
-                          normalize=normalize, eps=eps)
-    return o.reshape(B, H, n, -1)
+    """AHLA over ``(B, H, n, d)`` tensors, differentiable in ``q, k, v`` and
+    ``gamma`` (broadcastable to ``(B, H)``): one chunkwise forward launch
+    with checkpoints, one backward launch.  Returns ``o (B, H, n, dv)`` in
+    ``v.dtype``; no state."""
+    return _ChunkAttention.apply(
+        ahla_chunk_fwd, ahla_chunk_bwd, dict(normalize=normalize, eps=eps),
+        q, k, v, gamma)
 
 
 def ahla_prefill(q, k, v, gamma=None, *, state: AHLAState | None = None,

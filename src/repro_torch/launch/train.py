@@ -10,6 +10,9 @@ data from the deterministic synthetic stream.  Runs on the card by default:
 and on the CPU (plain versions of the kernels) with ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+
+``--mixer ahla`` trains the same model with the AHLA mixer (its own
+forward and backward kernels, the same parameter layout).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..optim import adamw
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="hla-1b")
+    ap.add_argument("--mixer", default=None)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -41,11 +45,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, reduced=args.reduced)
+    cfg = get_config(args.arch, reduced=args.reduced, mixer=args.mixer)
     device = torch.device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"[train] {cfg.name} on {name}")
+    print(f"[train] {cfg.name} ({cfg.mixer}) on {name}")
     params = init_params(lm.lm_specs(cfg), args.seed, device)
     opt_cfg = adamw.OptConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 5))

@@ -8,11 +8,11 @@ output norm with a learned ``out_scale``.  Both records share that wrapper
 (``_sublayer_forward``, ``_sublayer_step``) and the parameter layout, and
 differ only in their core calls.  The full-sequence path is one
 chunk-parallel kernel launch per call: stateless for training
-(``kernels.ops.hla2_attention``, differentiable; ``ahla_attention``,
-forward only on the card), or returning the carry for prefill
-(``hla2_prefill``, ``ahla_prefill``); the one-token path one batched
-decode-step launch that updates the state in place (``hla2_decode_step``,
-``ahla_decode_step``).
+(``kernels.ops.hla2_attention``, ``ahla_attention``: one forward launch
+with chunk checkpoints, then one backward launch), or returning the carry
+for prefill (``hla2_prefill``, ``ahla_prefill``); the one-token path one
+batched decode-step launch that updates the state in place
+(``hla2_decode_step``, ``ahla_decode_step``).
 """
 
 from __future__ import annotations

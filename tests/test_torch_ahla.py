@@ -38,7 +38,7 @@ from repro_torch.core import ahla as port
 from repro_torch.core import linear_attn as port_lin
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import chunk_math as port_cm
-from repro_torch.kernels.ahla_chunk import W, ahla_chunk_fwd
+from repro_torch.kernels.ahla_chunk import W, ahla_chunk_bwd, ahla_chunk_fwd
 from repro_torch.kernels.decode_step import ahla_step
 from repro_torch.launch import serve
 from repro_torch.models import lm, seq_op
@@ -310,8 +310,8 @@ def test_prefill_matches_reference_ops(rng, resume):
 
 def test_attention_on_cpu_is_the_differentiable_plain_path(rng):
     """``ops.ahla_attention`` on CPU tensors: the chunkwise outputs, and
-    gradients through autograd (against the reference's VJP of its
-    chunkwise form), in fp64."""
+    gradients through its plain backward (against the reference's VJP of
+    its chunkwise form), in fp64."""
     q, k, v, g = _mk(rng, (B, H), 19)
     tq, tk, tv, tg = (_t(x).requires_grad_(True) for x in (q, k, v, g))
     o = ops.ahla_attention(tq, tk, tv, tg)
@@ -493,16 +493,34 @@ class _FakeCuda(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-def test_attention_on_cuda_refuses_grad_before_any_launch(rng):
+def test_attention_on_cuda_refuses_grad_before_any_launch(rng, monkeypatch):
+    """On the card the raw forward kernel still refuses inputs that need a
+    gradient, before any launch, and points at ``ops.ahla_attention``;
+    ``ops.ahla_attention`` itself hands the kernel detached rows and asks
+    for the chunk checkpoints its backward kernel walks."""
     q, k, v, g = (torch.Tensor._make_subclass(_FakeCuda, _t(x), True)
                   for x in _mk(rng, (B, H), 9, dtype=np.float32))
     ops.LAUNCHES.clear()
-    with pytest.raises(RuntimeError, match="AHLA has no backward kernel"):
-        ops.ahla_attention(q, k, v, g)
+    with pytest.raises(RuntimeError, match=r"ops\.ahla_attention"):
+        ahla_chunk_fwd(q[0], k[0], v[0], g[0])
+    assert sum(ops.LAUNCHES.values()) == 0 and not _build._libs
+
+    class Reached(Exception):
+        pass
+
+    def kernel(*rows, save_chunk_states=False, **kw):
+        assert save_chunk_states and rows[3] is None
+        assert not any(x.requires_grad for x in rows[:3])
+        raise Reached
+
+    monkeypatch.setattr(ops, "ahla_chunk_fwd", kernel)
+    with pytest.raises(Reached):  # gamma None: no tensor is moved
+        ops.ahla_attention(q, k, v)
     assert sum(ops.LAUNCHES.values()) == 0 and not _build._libs
 
 
-@pytest.mark.parametrize("wrapper", [ahla_chunk_fwd, ahla_step])
+@pytest.mark.parametrize("wrapper", [ahla_chunk_fwd, ahla_chunk_bwd,
+                                     ahla_step])
 def test_cuda_branch_refuses_grad_before_launch(wrapper):
     # read the CUDA branch: the guard runs on every tensor the kernel reads,
     # before the library is loaded
@@ -516,8 +534,9 @@ def test_refuse_grad_names_each_operator():
     w = torch.zeros(3, requires_grad=True)
     with pytest.raises(RuntimeError, match="ops.hla2_attention"):
         _build.refuse_grad("hla2_chunk_fwd", [w])
-    with pytest.raises(RuntimeError, match="AHLA has no backward kernel"):
-        _build.refuse_grad("ahla_step", [w])
+    for name in ("ahla_chunk_fwd", "ahla_chunk_bwd", "ahla_step"):
+        with pytest.raises(RuntimeError, match="ops.ahla_attention"):
+            _build.refuse_grad(name, [w])
 
 
 def test_launch_counters_stay_zero_on_cpu(rng):

@@ -34,6 +34,18 @@ ref = importlib.import_module("repro.kernels.ref")
 BH, D, DV = 2, 6, 5
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these cells run thousands of tiny products,
+    and when the suite's parallel workers each hold a full thread pool on
+    the same cores, the pools thrash and a gradcheck runs many times
+    slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mk(rng, n, positive=False, dtype=np.float32):
     def r(*s):
         x = rng.randn(*s) * 0.5
