@@ -8,11 +8,14 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
 1. build the hand-written kernels from ``src/repro_torch/csrc`` (six: the
    HLA2 chunkwise forward, decode step and chunkwise backward, the AHLA
    chunkwise forward, decode step and chunkwise backward; one nvcc per
-   source, all at once) and print nvcc's register report;
+   source, all at once) and print nvcc's register report and the HLA2
+   chunk kernels' shared memory;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (hla-1b rows, head dim 128): the forwards and the
    steps at serving shapes, the forwards' checkpoints and the backwards at
-   the train phase's (32 rows x 2048 tokens);
+   the train phase's (32 rows x 2048 tokens), the HLA2 backward's
+   normalize and lam cases at d = 16 and across the column tiles of
+   d = 128;
 3. check the port against its plain path on a small model (card vs CPU):
    prefill + decode logits, and the training loss and every parameter's
    gradient, with either mixer; and at full width that prefill(L) + one
@@ -35,6 +38,7 @@ repository, the script exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 from concurrent.futures import ThreadPoolExecutor
@@ -47,12 +51,23 @@ ROOT = Path(__file__).resolve().parent
 
 # published H100 SXM peaks (NVIDIA data sheet) for the lower bounds
 PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOP_S = 989e12
 PEAK_FP32_FLOP_S = 67e12
+# the chunk kernels' FMAs by operand type, (bf16 x bf16, bf16 x fp32, fp32 x
+# fp32), each at the card's fastest rate that keeps fp32 accuracy:
+#   - bf16 x bf16 on the bf16 tensor cores, 989 TFLOP/s;
+#   - bf16 x fp32 with the fp32 operand split into three bf16 parts (24
+#     bits), three bf16 MMAs: 989/3 (TF32 with a split operand, the HLA2
+#     kernels' route, needs two MMAs at 495: 495/2, slower);
+#   - fp32 x fp32 in TF32 with both operands split into high and low parts,
+#     three MMAs: 495/3 (six bf16 MMAs would give 989/6, no faster).
+CHUNK_RATES = (989e12, 989e12 / 3, 495e12 / 3)
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
 
 # kernel vs plain tolerances, relative to max|plain|:
-# fp32 outputs and every fp32 state differ only by summation order
-# (SIMT tiles vs cuBLAS, over up to 640 tokens and 128-wide dots): ~1e-6
+# fp32 outputs and every fp32 state differ only by summation order (the
+# HLA2 chunk kernels' split-TF32 tensor-core products, whose dropped low x
+# low term is below 2^-22 of a product, and the other kernels' SIMT tiles,
+# vs cuBLAS, over up to 640 tokens and 128-wide dots): ~1e-6
 TOL_FP32 = 1e-4
 # bf16 outputs are the fp32 results rounded to bf16 (2^-8 relative), and a
 # last-place difference in fp32 may flip a rounding: at most one bf16 ulp
@@ -162,9 +177,10 @@ def check_chunk(device, rows=16, d=128, ns=(512, 300)):
 def check_chunk_bwd(device, rows=32, d=128, ns=(2048, 300), small=False):
     """hla2_chunk_fwd's checkpoints and hla2_chunk_bwd vs their plain
     versions, at the train phase's rows.  ``small`` runs the normalize and
-    lam cases (d = 16).  Returns the max absolute errors of the main-path
-    case (bf16, first n, gamma): of dq/dk/dv, and of the forward's output
-    and checkpoints."""
+    lam cases instead: at d = 16 (the reduced model's heads) one column
+    tile, at d = 128 four, each with its own den column.  Returns the max
+    absolute errors of the main-path case (bf16, first n, gamma): of
+    dq/dk/dv, and of the forward's output and checkpoints."""
     import torch
 
     from repro_torch.kernels.hla2_chunk import (
@@ -759,34 +775,38 @@ def median_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def chunk_fmas(n, d, dv, w=64, has_init=False):
     """FMAs one row of hla2_chunk_fwd needs for bf16 inputs (gamma, no
-    normalize, no lam), split by operand type: ``(bf16 x bf16, fp32)``.
+    normalize, no lam), split by operand type: ``(bf16 x bf16, bf16 x fp32,
+    fp32 x fp32)``.
 
     Per chunk of r tokens of the kernel's schedule: only the causal
     triangles of the masked products, the upper triangle of S's update
     (S = sum k k^T is symmetric), and no products with the carry on the
     first chunk when there is no initial state.  K Q^T multiplies two
-    inputs (bf16); every other product has an fp32 operand (the carry, or
-    a decay-weighted term).  The O(r d) vector terms (m, h) are left out.
+    inputs.  A product of an input with a decay-weighted term counts as
+    bf16 x fp32: a diagonal decay factor moves to the fp32 side.  The O(r d)
+    vector terms (m, h) are left out.
     """
     def tri(x):  # entries of a causal triangle, diagonal included
         return x * (x + 1) // 2
 
-    bf16 = fp32 = 0
+    bb = bf = ff = 0
     for c0 in range(0, n, w):
         r = min(w, n - c0)
-        bf16 += r * r * d                 # K Q^T: both triangles are used
-        fp32 += r * (r + 1) * (r + 2) // 6  # T3 weights, j <= i <= t
-        fp32 += tri(r) * dv + tri(r - 1) * dv  # P V, N (g V)
-        fp32 += tri(d) * r + 2 * d * dv * r   # S, C, G updates
+        bb += r * r * d                   # K Q^T: both triangles are used
+        ff += r * (r + 1) * (r + 2) // 6  # T3 weights, j <= i <= t
+        bf += tri(r) * dv + tri(r - 1) * dv  # P V, N (g V)
+        bf += tri(d) * r + 2 * d * dv * r    # S, C, G updates
         if has_init or c0 > 0:
-            fp32 += r * d * d + tri(r) * d    # Q S0, T2 weights
-            fp32 += 3 * r * d * dv            # (Q S0) C0, Q G0, K C0
-    return bf16, fp32
+            bf += r * d * d + tri(r) * d     # Q S0, T2 weights (Q S0) Q^T
+            ff += r * d * dv                 # (Q S0) C0
+            bf += 2 * r * d * dv             # Q G0, K C0
+    return bb, bf, ff
 
 
 def chunk_bwd_fmas(n, d, dv, w=64):
     """FMAs one row of hla2_chunk_bwd needs for bf16 inputs (gamma, no
-    normalize, no lam), split by operand type: ``(bf16 x bf16, fp32)``.
+    normalize, no lam), split by operand type: ``(bf16 x bf16, bf16 x fp32,
+    fp32 x fp32)``.
 
     Per chunk of r tokens, the products of the adjoint in
     ``chunk_math.hla2_chunk_math_bwd``, as the kernel groups them, with
@@ -795,62 +815,70 @@ def chunk_bwd_fmas(n, d, dv, w=64):
     (its carry is zero) and the carry cotangent it would hand back (the
     forward's initial carry is no input), and products with the incoming
     carry cotangent on the last chunk (the final carry's cotangent is
-    zero).  K Q^T and dO V^T multiply two inputs (bf16); every other
-    product has an fp32 operand.  O(r d) vector terms are left out.
+    zero).  K Q^T and dO V^T multiply two inputs; a product of an input
+    (Q, K, V, dO) with a decay-weighted or fp32 term counts as bf16 x fp32.
+    O(r d) vector terms are left out.
     """
     def tri(x):  # entries of a causal triangle, diagonal included
         return x * (x + 1) // 2
 
-    bf16 = fp32 = 0
+    bb = bf = ff = 0
     for c0 in range(0, n, w):
         r = min(w, n - c0)
         first, last = c0 == 0, c0 + r == n
-        tri3 = r * (r + 1) * (r + 2) // 6
-        bf16 += r * r * d + tri(r) * dv      # K Q^T, E = dO V^T
-        fp32 += 3 * tri3                     # A Bm, dA, dBm
-        fp32 += tri(r) * dv + 4 * tri(r) * d  # wgt^T dO; dBm, dA into dq, dk
+        bb += r * r * d + tri(r) * dv      # K Q^T, E = dO V^T
+        ff += 3 * r * (r + 1) * (r + 2) // 6  # A Bm, dA, dBm
+        bf += tri(r) * dv + 4 * tri(r) * d  # wgt^T dO; dBm, dA into dq, dk
         if not last:  # products with the incoming carry cotangent
-            # Kg dG, V dC^T, Qg dC, Z dG^T; Kg dS, K dS^T
-            fp32 += 4 * r * d * dv + 2 * r * d * d
-            # N (r V), dN, N^T (Kg dG); dN Q, dN^T K
-            fp32 += 3 * tri(r - 1) * dv + 2 * tri(r - 1) * d
-            if not first:  # rho K C0, rho (Kg dG) C0^T, K^T (Kg dG)
-                fp32 += 3 * r * d * dv
+            # Kg dG, V dC^T, Qg dC; Kg dS, K dS^T | Z dG^T
+            bf += 3 * r * d * dv + 2 * r * d * d
+            ff += r * d * dv
+            # N (r V), dN; dN Q, dN^T K | N^T (Kg dG)
+            bf += 2 * tri(r - 1) * dv + 2 * tri(r - 1) * d
+            ff += tri(r - 1) * dv
+            if not first:  # rho K C0, K^T (Kg dG) | rho (Kg dG) C0^T
+                bf += 2 * r * d * dv
+                ff += r * d * dv
         if not first:  # products with the carry, and the cotangent of it
-            fp32 += r * d * d + tri(r) * d  # Q S0, Q S0 Q^T
-            fp32 += 2 * r * d * dv  # dO C0^T, dO G0^T
-            fp32 += 2 * tri(r) * d + 2 * r * d * d  # dQS0, dX2^T Q S0;
-            #                         (dO C0^T) S0^T, dQS0 S0^T
-            fp32 += 2 * d * dv * r + d * d * r  # dC, dG, dS updates
-    return bf16, fp32
+            bf += r * d * d + tri(r) * d  # Q S0, Q S0 Q^T
+            bf += 2 * r * d * dv          # dO C0^T, dO G0^T
+            bf += tri(r) * d              # dQS0 = (E . Lg) Q
+            ff += tri(r) * d + 2 * r * d * d  # dX2^T Q S0; (dO C0^T) S0^T,
+            #                                  dQS0 S0^T
+            bf += 2 * d * dv * r + d * d * r  # dC, dG, dS updates
+    return bb, bf, ff
 
 
 def ahla_chunk_fmas(n, d, dv, w=64, has_init=False):
     """FMAs one row of ahla_chunk_fwd needs for bf16 inputs (gamma, no
-    normalize), split by operand type: ``(bf16 x bf16, fp32)``.
+    normalize), split by operand type: ``(bf16 x bf16, bf16 x fp32, fp32 x
+    fp32)``.
 
     Per chunk of r tokens (``chunk_math.ahla_chunk_math``): Q K^T over its
-    causal triangle (two inputs: bf16), A [V | 1] and A R over the
-    triangle (A is fp32), the [P | m] and [E | n] updates, and the products
-    with the carry (Q [P | m], Q E0) except on the first chunk when there
-    is no initial state (its carry is zero).  The den column of A R and of
-    Q E0 is needed under normalize only.
+    causal triangle (two inputs), A [V | 1] and A R over the triangle (A
+    and R are fp32), the [P | m] and [E | n] updates (K with its decay
+    moved to the other side), and the products with the carry (Q [P | m],
+    Q E0) except on the first chunk when there is no initial state (its
+    carry is zero).  The den column of A R and of Q E0 is needed under
+    normalize only.
     """
-    bf16 = fp32 = 0
+    bb = bf = ff = 0
     for c0 in range(0, n, w):
         r = min(w, n - c0)
         tri = r * (r + 1) // 2
-        bf16 += tri * d                        # Q K^T
-        fp32 += tri * (dv + 1) + tri * dv      # A [V | 1], A R
-        fp32 += 2 * d * (dv + 1) * r           # [P | m], [E | n] updates
+        bb += tri * d                        # Q K^T
+        bf += tri * (dv + 1)                 # A [V | 1]
+        ff += tri * dv                       # A R
+        bf += 2 * d * (dv + 1) * r           # [P | m], [E | n] updates
         if has_init or c0 > 0:
-            fp32 += r * d * (dv + 1) + r * d * dv  # Q [P | m], Q E0
-    return bf16, fp32
+            bf += r * d * (dv + 1) + r * d * dv  # Q [P | m], Q E0
+    return bb, bf, ff
 
 
 def ahla_chunk_bwd_fmas(n, d, dv, w=64):
     """FMAs one row of ahla_chunk_bwd needs for bf16 inputs (gamma, no
-    normalize), split by operand type: ``(bf16 x bf16, fp32)``.
+    normalize), split by operand type: ``(bf16 x bf16, bf16 x fp32, fp32 x
+    fp32)``.
 
     Per chunk of r tokens, the products of the adjoint in
     ``chunk_math.ahla_chunk_math_bwd``, with only the causal triangles of
@@ -860,30 +888,47 @@ def ahla_chunk_bwd_fmas(n, d, dv, w=64):
     the carry cotangent it would hand back (the forward's initial carry is
     no input), and products with the incoming carry cotangent on the last
     chunk (the final carry's cotangent is zero).  Q K^T multiplies two
-    inputs (bf16); every other product has an fp32 operand.
+    inputs; a product of an input (Q, K, V, dO) with an fp32 term counts as
+    bf16 x fp32.
     """
-    bf16 = fp32 = 0
+    bb = bf = ff = 0
     for c0 in range(0, n, w):
         r = min(w, n - c0)
         first, last = c0 == 0, c0 + r == n
         tri = r * (r + 1) // 2
-        bf16 += tri * d               # Q K^T
-        # A V, A^T dO, dO R^T, dR V^T, A^T dR; (dA . Lg) K, (dA . Lg)^T Q
-        fp32 += 5 * tri * dv + 2 * tri * d
-        if not first:  # Q P0, Q E0, dO E0^T, dR P0^T; the dP, dE updates
-            fp32 += 6 * r * d * dv
-        if not last:  # K dE1, K dP1, V dP1^T, R dE1^T
-            fp32 += 4 * r * d * dv
+        bb += tri * d               # Q K^T
+        # A V, A^T dO, dO R^T, dR V^T; (dA . Lg) K, (dA . Lg)^T Q | A^T dR
+        bf += 4 * tri * dv + 2 * tri * d
+        ff += tri * dv
+        if not first:  # Q P0, Q E0, dO E0^T, the dP, dE updates | dR P0^T
+            bf += 5 * r * d * dv
+            ff += r * d * dv
+        if not last:  # K dE1, K dP1, V dP1^T | R dE1^T
+            bf += 3 * r * d * dv
+            ff += r * d * dv
         if not (first or last):  # d rho: <dP1, P0> + <dE1, E0>
-            fp32 += 2 * d * dv
-    return bf16, fp32
+            ff += 2 * d * dv
+    return bb, bf, ff
 
 
-def _bound(nbytes, bf16_fma, fp32_fma, rows):
+def _bound(nbytes, fmas, rows, rates=CHUNK_RATES):
+    """The least time (ms) and what sets it: ``nbytes`` at the memory rate,
+    or the FMAs of ``rows`` rows, ``fmas[i]`` of them at ``rates[i]``.  The
+    chunk kernels' counts ``(bf16 x bf16, bf16 x fp32, fp32 x fp32)`` are
+    priced at ``CHUNK_RATES``, the card's fastest route for each operand
+    type at fp32 accuracy, so no kernel of the function could beat it.  The
+    step kernels' products are priced at the 67 TFLOP/s SIMT rate (they are
+    bound by bytes either way)."""
     t_b = 1e3 * nbytes / PEAK_BYTES_S
-    t_f = 1e3 * 2 * rows * (bf16_fma / PEAK_BF16_FLOP_S
-                            + fp32_fma / PEAK_FP32_FLOP_S)
+    t_f = 1e3 * 2 * rows * sum(f / r for f, r in zip(fmas, rates))
     return max(t_b, t_f), "bytes" if t_b > t_f else "operations"
+
+
+def _ops_text(fmas, rows):
+    """The GFLOP of a chunk kernel's bound by operand type, for its log."""
+    bb, bf, ff = (2 * rows * f / 1e9 for f in fmas)
+    return (f"{bb:.3f} GFLOP bf16 x bf16 at 989 TFLOP/s + {bf:.3f} bf16 x "
+            f"fp32 at 989/3 + {ff:.3f} fp32 x fp32 at 495/3")
 
 
 def time_train_kernels(device, mixer, bwd_abs, ckpt_abs, launches, rows=32,
@@ -913,13 +958,11 @@ def time_train_kernels(device, mixer, bwd_abs, ckpt_abs, launches, rows=32,
     fwd_fmas, bwd_fmas = {
         "hla2": (chunk_fmas, chunk_bwd_fmas),
         "ahla": (ahla_chunk_fmas, ahla_chunk_bwd_fmas)}[mixer]
-    bf_f, f32_f = fwd_fmas(n, d, d)
-    bound_f, by_f = _bound(io + st_bytes + ck_bytes + 4 * rows, bf_f, f32_f,
-                           rows)
-    bf_b, f32_b = bwd_fmas(n, d, d)
+    fmas_f, fmas_b = fwd_fmas(n, d, d), bwd_fmas(n, d, d)
+    bound_f, by_f = _bound(io + st_bytes + ck_bytes + 4 * rows, fmas_f, rows)
     # q, k, v, do in; dq, dk, dv out (bf16); checkpoints in; gamma, dgamma
     bound_b, by_b = _bound(io + 2 * rows * n * 3 * d + ck_bytes + 8 * rows,
-                           bf_b, f32_b, rows)
+                           fmas_b, rows)
     fwd_src, bwd_src, fwd_line, bwd_line = {
         "hla2": (CHUNK_SRC, BWD_SRC, "src/repro/kernels/hla2_chunk.py:176",
                  "src/repro/kernels/hla2_chunk.py:378"),
@@ -928,13 +971,11 @@ def time_train_kernels(device, mixer, bwd_abs, ckpt_abs, launches, rows=32,
                  "src/repro/kernels/ahla_chunk.py:284")}[mixer]
     log(f"{fwd_name} with checkpoints at rows {rows} n {n} d {d}, bf16 "
         f"in: {ms_f:.4f} ms, plain {plain_f:.4f} ms, bound {bound_f:.4f} ms "
-        f"({by_f}: {2 * rows * bf_f / 1e9:.3f} GFLOP bf16 x bf16 + "
-        f"{2 * rows * f32_f / 1e9:.3f} GFLOP fp32; checkpoints "
+        f"({by_f}: {_ops_text(fmas_f, rows)}; checkpoints "
         f"{ck_bytes / 1e6:.1f} MB)")
     log(f"{bwd_name} at rows {rows} n {n} d {d}, bf16 in: {ms_b:.4f} ms, "
         f"plain {plain_b:.4f} ms, bound {bound_b:.4f} ms ({by_b}: "
-        f"{2 * rows * bf_b / 1e9:.3f} GFLOP bf16 x bf16 at 989 TFLOP/s + "
-        f"{2 * rows * f32_b / 1e9:.3f} GFLOP fp32 at 67 TFLOP/s)")
+        f"{_ops_text(fmas_b, rows)})")
     return [
         dict(name=f"{fwd_name}[save_chunk_states]", route="cuda",
              source=fwd_src, replaces=fwd_line,
@@ -960,24 +1001,18 @@ def time_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
     q, k, v, g = _inputs(gen, rows_chunk, n, d, d, bf, device)
     ms = median_ms(lambda i: hla2_chunk_fwd(q, k, v, g), 20)
     plain = median_ms(lambda i: hla2_chunk_fwd_plain(q, k, v, g), 5)
-    bf16_fma, fp32_fma = chunk_fmas(n, d, d)
+    fmas = chunk_fmas(n, d, d)
     state_bytes = 4 * rows_chunk * (3 * d * d + 2 * d)
     nbytes = 2 * rows_chunk * n * (2 * d + 2 * d) + state_bytes + 4 * rows_chunk
-    t_b = 1e3 * nbytes / PEAK_BYTES_S
-    t_f = 1e3 * 2 * rows_chunk * (bf16_fma / PEAK_BF16_FLOP_S
-                                  + fp32_fma / PEAK_FP32_FLOP_S)
+    bound, by = _bound(nbytes, fmas, rows_chunk)
     chunk = dict(
         name="hla2_chunk_fwd", route="cuda", source=CHUNK_SRC,
         replaces="src/repro/kernels/hla2_chunk.py:176",
         launches=launches.get("hla2_chunk_fwd", 0), max_abs_err=chunk_abs,
-        ms=ms, plain_ms=plain, bound_ms=max(t_b, t_f),
-        bound_by="bytes" if t_b > t_f else "operations", library_ms=None)
+        ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
     log(f"hla2_chunk_fwd at rows {rows_chunk} n {n} d {d}, bf16 in: "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{chunk['bound_ms']:.4f} ms ({chunk['bound_by']}: "
-        f"{2 * rows_chunk * bf16_fma / 1e9:.3f} GFLOP bf16 x bf16 at 989 "
-        f"TFLOP/s + {2 * rows_chunk * fp32_fma / 1e9:.3f} GFLOP fp32 at 67 "
-        f"TFLOP/s; {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}: "
+        f"{_ops_text(fmas, rows_chunk)}; {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
 
     # one state per layer of a 24-layer stack would not fit in L2; rotate
     # over 8 copies (~100 MB) so every launch finds its state cold
@@ -1022,11 +1057,11 @@ def time_ahla_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
     q, k, v, g = _inputs(gen, rows_chunk, n, d, d, bf, device)
     ms = median_ms(lambda i: ahla_chunk_fwd(q, k, v, g), 20)
     plain = median_ms(lambda i: ahla_chunk_fwd_plain(q, k, v, g), 5)
-    bf16_fma, fp32_fma = ahla_chunk_fmas(n, d, d)
+    fmas = ahla_chunk_fmas(n, d, d)
     # q, k, v in and o out (bf16), the fp32 carry out, gamma in
     state_bytes = 4 * rows_chunk * (2 * d * d + 2 * d)
     nbytes = 2 * rows_chunk * n * 4 * d + state_bytes + 4 * rows_chunk
-    bound, by = _bound(nbytes, bf16_fma, fp32_fma, rows_chunk)
+    bound, by = _bound(nbytes, fmas, rows_chunk)
     chunk = dict(
         name="ahla_chunk_fwd", route="cuda", source=AHLA_CHUNK_SRC,
         replaces="src/repro/kernels/ahla_chunk.py:100",
@@ -1034,9 +1069,7 @@ def time_ahla_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
         ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
     log(f"ahla_chunk_fwd at rows {rows_chunk} n {n} d {d}, bf16 in: "
         f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}: "
-        f"{2 * rows_chunk * bf16_fma / 1e9:.3f} GFLOP bf16 x bf16 at 989 "
-        f"TFLOP/s + {2 * rows_chunk * fp32_fma / 1e9:.3f} GFLOP fp32 at 67 "
-        f"TFLOP/s; {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+        f"{_ops_text(fmas, rows_chunk)}; {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
 
     # one state per layer of a 24-layer stack would not fit in L2; rotate
     # over 8 copies (~200 MB) so every launch finds its state cold
@@ -1055,7 +1088,8 @@ def time_ahla_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
     nbytes = 2 * state_bytes + 2 * rows_step * 4 * d + 4 * rows_step
     # FMAs per row: 2 per element of P and of E (update, q reduction), 1
     # per element of R; all fp32
-    bound_s, by_s = _bound(nbytes, 0, 5 * d * d, rows_step)
+    bound_s, by_s = _bound(nbytes, (5 * d * d,), rows_step,
+                           (PEAK_FP32_FLOP_S,))
     step = dict(
         name="ahla_step", route="cuda", source=AHLA_STEP_SRC,
         replaces="src/repro/kernels/decode_step.py:250",
@@ -1104,6 +1138,15 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"{name} ptxas: {line.strip()}")
+    for name in ("hla2_chunk_fwd", "hla2_chunk_bwd"):
+        fn = getattr(_build.load(name, dict(builds)[name]), f"{name}_smem_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_long
+        smem = {dt: fn(128, int(dt == "bf16")) for dt in ("bf16", "fp32")}
+        log(f"{name} shared memory at d = 128: {smem['bf16']:,} bytes with "
+            f"bf16 inputs, {smem['fp32']:,} with fp32 (limit {SMEM_LIMIT:,})")
+        if max(smem.values()) > SMEM_LIMIT:
+            raise AssertionError(f"{name} asks for more shared memory than "
+                                 "a block may use")
 
     chunk_abs = check_chunk(device)
     step_abs = check_step(device)
@@ -1111,6 +1154,8 @@ def main() -> int:
     check_step(device, rows=8, d=16, n_prior=70)
     bwd_abs, ckpt_abs = check_chunk_bwd(device)
     check_chunk_bwd(device, rows=8, d=16, ns=(130, 7), small=True)
+    # normalize and lam across four column tiles, ragged
+    check_chunk_bwd(device, rows=4, d=128, ns=(300,), small=True)
     ahla_chunk_abs = check_ahla_chunk(device)
     ahla_step_abs = check_ahla_step(device)
     check_ahla_chunk(device, rows=8, d=16, ns=(130, 7))

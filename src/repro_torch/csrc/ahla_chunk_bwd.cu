@@ -21,8 +21,10 @@
 // Bound on this card: operations.  A 64-token chunk at d = dv = 128 needs
 // about 12.6 M FMAs per row (ten d x dv x w products, seven w x w x d or
 // dv triangles) against 0.25 MB of q/k/v/do/dq/dk/dv and checkpoint
-// traffic; the products run as fp32 FMAs on the CUDA cores, so the floor
-// is the 67 TFLOP/s fp32 rate (chip_smoke.ahla_chunk_bwd_fmas prices it).
+// traffic.  The products run as fp32 FMAs on the CUDA cores (67 TFLOP/s),
+// but the floor prices each at the card's fastest fp32-accurate rate for
+// its operands, on the tensor cores (chip_smoke.ahla_chunk_bwd_fmas,
+// _bound).
 //
 // Design: the forward's split of a row over CTAs of CW = 32 columns of
 // [V | 1] carries over.  Every term above but dQ, dK and dgamma is

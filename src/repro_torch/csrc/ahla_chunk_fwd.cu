@@ -16,9 +16,10 @@
 // since r[t] p[t] = rho; it needs no d x d product.)
 //
 // Bound on this card: operations.  A 64-token chunk at d = dv = 128 does
-// about 5.0 M FMAs per row against 64 KB of q/k/v/o traffic, far above the
-// H100's ~20 FLOP/byte fp32 ridge; the products run as fp32 FMAs on the CUDA
-// cores, so the floor is the 67 TFLOP/s fp32 rate.
+// about 5.0 M FMAs per row against 64 KB of q/k/v/o traffic.  The products
+// run as fp32 FMAs on the CUDA cores (67 TFLOP/s), but the floor prices
+// each at the card's fastest fp32-accurate rate for its operands, on the
+// tensor cores (chip_smoke.ahla_chunk_fmas, _bound).
 //
 // Design: every value column of AHLA is independent of the others (each
 // column of P, E, R and O reads only its own column of V), except the den

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
 ``build/repro_torch/<hash>/lib<name>.so`` at the root of the checkout (the
-hash covers the source and the flags, so an edited kernel rebuilds), then
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edited kernel or header rebuilds), then
 loaded with ``ctypes``.  Nothing here runs at import: the CPU tests import
 every module on a machine with no ``nvcc``.
 
@@ -47,9 +48,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_ROOT / key / f"lib{name}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every shared
+    header ``csrc/*.cuh`` (any of them may be included) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
 
 def _compile(name: str, lib: Path) -> None:

@@ -24,7 +24,7 @@ from .chunk_math import hla2_chunk_math, hla2_chunk_math_bwd
 W = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIG = ([_P] * 15 + [_I] * 7 + [_F, _F, _I, _P], ctypes.c_int)
+_SIG = ([_P] * 20 + [_I] * 6 + [_F, _F, _I, _P], ctypes.c_int)
 _BWD_SIG = ([_P] * 15 + [_I] * 6 + [_F, _F, _I, _P], ctypes.c_int)
 
 
@@ -138,11 +138,11 @@ def hla2_chunk_fwd(q, k, v, gamma=None, *, initial_state=None,
     BH, n, d = q.shape
     dv = v.shape[-1]
     o = torch.empty_like(v)
-    if initial_state is None:
-        state = tuple(torch.empty(s, dtype=torch.float32, device=q.device)
-                      for s in _state_shapes(BH, d, dv))
-    else:  # the kernel rewrites its carry in place
-        state = tuple(x.clone() for x in initial_state)
+    # the kernel reads the initial carry and writes the final one apart
+    state = tuple(torch.empty(s, dtype=torch.float32, device=q.device)
+                  for s in _state_shapes(BH, d, dv))
+    init = (None,) * 5 if initial_state is None else tuple(
+        x.data_ptr() for x in initial_state)
     saved = None
     if save_chunk_states:
         saved = tuple(torch.empty(s, dtype=torch.float32, device=q.device)
@@ -150,12 +150,11 @@ def hla2_chunk_fwd(q, k, v, gamma=None, *, initial_state=None,
     lib = _build.load("hla2_chunk_fwd", _SIG)
     err = lib.hla2_chunk_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if gamma is None else gamma.data_ptr(), o.data_ptr(),
+        None if gamma is None else gamma.data_ptr(), *init, o.data_ptr(),
         *(x.data_ptr() for x in state),
         *((None,) * 5 if saved is None else (x.data_ptr() for x in saved)),
-        BH, n, d, dv, int(q.dtype == torch.bfloat16),
-        int(initial_state is not None), int(normalize), eps, lam,
-        q.device.index,
+        BH, n, d, dv, int(q.dtype == torch.bfloat16), int(normalize), eps,
+        lam, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "hla2_chunk_fwd")
@@ -245,9 +244,11 @@ def hla2_chunk_bwd(q, k, v, gamma, do, chunk_states, *,
     dgamma = None if gamma is None else torch.empty_like(gamma)
     lib = _build.load("hla2_chunk_bwd", _BWD_SIG)
     size = lib.hla2_chunk_bwd_scratch_floats
-    size.argtypes, size.restype = [_I, _I, _I], ctypes.c_long
-    scratch = torch.empty((BH, size(d, dv_, int(normalize))),
-                          dtype=torch.float32, device=q.device)
+    size.argtypes, size.restype = [_I] * 4, ctypes.c_long
+    # per column tile: the walk's transient tiles, the partial dq, dk
+    # (summed by the kernel's second pass) and the partial dgamma
+    scratch = torch.empty(size(BH, n, d, dv_), dtype=torch.float32,
+                          device=q.device)
     err = lib.hla2_chunk_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if gamma is None else gamma.data_ptr(), do.data_ptr(),

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the reference package, and importing the
+"""The port stands alone: nothing under ``src/repro_torch/``, not
+``chip_smoke.py`` and not the port's card scripts under ``scripts/`` imports
+JAX or the reference package, and importing the
 port builds no kernel (kernels build at their first CUDA launch)."""
 
 import ast
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -163,3 +163,23 @@ def test_cuda_branch_refuses_grad_before_launch(wrapper):
     cuda = src[src.index('if q.device.type != "cuda"'):]
     assert 0 < cuda.index(f'_build.refuse_grad("{wrapper.__name__}", '
                           "tensors)") < cuda.index("_build.load(")
+
+
+def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
+    # a kernel source includes csrc/*.cuh: an edit to a header must give a
+    # new build directory, or the old library would be loaded again
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    first = _build._lib_path("k")
+    assert first.name == "libk.so" and first.parent.parent == _build.BUILD_ROOT
+    assert _build._lib_path("k") == first  # the key is stable
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build._lib_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build._lib_path("k") not in (first, second)
+    (tmp_path / "other.cuh").unlink()
+    assert _build._lib_path("k") == second
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build._lib_path("k") != second

@@ -198,6 +198,51 @@ def test_ahla_three_train_steps_match_reference(ahla_model):
     _check_three_steps(ahla_model, "float64")
 
 
+def _low_lr_losses(model, seq, steps=5):
+    """Loss of each of ``steps`` AdamW steps at lr 1e-5 with one warmup step
+    (``chip_smoke.py``'s train phase) on one repeated batch, reference and
+    port from the same weights: ``(reference losses, port losses)``."""
+    ref_cfg, ref_params, cfg, params = model
+    kw = dict(lr=1e-5, warmup_steps=1, total_steps=steps)
+    ref_step = ref_steps.make_train_step(ref_cfg, ref_adamw.OptConfig(**kw))
+    step = make_train_step(cfg, adamw.OptConfig(**kw))
+    r_state = ref_adamw.init_opt_state(ref_params)
+    state = adamw.init_opt_state(params)
+    host = RefStream(RefDataConfig(cfg.vocab, seq, 2, seed=0)).batch(0)
+    ref_losses, losses = [], []
+    for _ in range(steps):
+        ref_params, r_state, r_m = ref_step(
+            ref_params, r_state, {k: jnp.asarray(v) for k, v in host.items()})
+        params, state, m = step(
+            params, state, {k: torch.from_numpy(v) for k, v in host.items()})
+        ref_losses.append(float(r_m["loss"]))
+        losses.append(float(m["loss"]))
+    return ref_losses, losses
+
+
+# hla-1b cut to 4 layers x 512 wide (heads of 128, d_ff in hla-1b's
+# ratio, fp32 activations), its vocabulary kept
+WIDE = dict(n_layers=4, d_model=512, n_heads=4, n_kv_heads=4, d_ff=1376,
+            dtype="float32")
+
+
+@pytest.mark.parametrize("size, seq", [("reduced", 70), ("4x512", 256)])
+def test_low_lr_loss_sequence_matches_reference(model, size, seq):
+    # the train phase's schedule, where hla-1b's HLA2 loss rose after the
+    # first update on the card: the port's loss follows the reference's at
+    # every step
+    if size == "4x512":
+        ref_cfg, cfg = (ref_get_config("hla-1b").replace(**WIDE),
+                        get_config("hla-1b").replace(**WIDE))
+        ref_params = ref_init_params(ref_lm.lm_specs(ref_cfg),
+                                     jax.random.key(0))
+        model = (ref_cfg, ref_params, cfg, from_jax_params(
+            jax.device_get(ref_params), lm.lm_specs(cfg), device="cpu"))
+    want, got = _low_lr_losses(model, seq)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= TOL
+
+
 def _check_cli(capsys, *extra):
     train_cli.main(["--reduced", "--device", "cpu", "--steps", "3",
                     "--batch", "2", "--seq", "40", *extra])
