@@ -8,13 +8,13 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
 1. build the hand-written kernels from ``src/repro_torch/csrc`` (six: the
    HLA2 chunkwise forward, decode step and chunkwise backward, the AHLA
    chunkwise forward, decode step and chunkwise backward; one nvcc per
-   source, all at once) and print nvcc's register report and the HLA2
+   source, all at once) and print nvcc's register report and the four
    chunk kernels' shared memory;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (hla-1b rows, head dim 128): the forwards and the
    steps at serving shapes, the forwards' checkpoints and the backwards at
-   the train phase's (32 rows x 2048 tokens), the HLA2 backward's
-   normalize and lam cases at d = 16 and across the column tiles of
+   the train phase's (32 rows x 2048 tokens), the backwards' normalize
+   (and HLA2's lam) cases at d = 16 and across the column tiles of
    d = 128;
 3. check the port against its plain path on a small model (card vs CPU):
    prefill + decode logits, and the training loss and every parameter's
@@ -65,9 +65,9 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
 
 # kernel vs plain tolerances, relative to max|plain|:
 # fp32 outputs and every fp32 state differ only by summation order (the
-# HLA2 chunk kernels' split-TF32 tensor-core products, whose dropped low x
-# low term is below 2^-22 of a product, and the other kernels' SIMT tiles,
-# vs cuBLAS, over up to 640 tokens and 128-wide dots): ~1e-6
+# chunk kernels' split-TF32 tensor-core products, whose dropped low x low
+# term is below 2^-22 of a product, and the step kernels' SIMT loops, vs
+# cuBLAS, over up to 640 tokens and 128-wide dots): ~1e-6
 TOL_FP32 = 1e-4
 # bf16 outputs are the fp32 results rounded to bf16 (2^-8 relative), and a
 # last-place difference in fp32 may flip a rounding: at most one bf16 ulp
@@ -387,7 +387,8 @@ def check_ahla_chunk_bwd(device, rows=32, d=128, ns=(2048, 300),
                          small=False):
     """ahla_chunk_fwd's checkpoints and ahla_chunk_bwd vs their plain
     versions, at the train phase's rows.  ``small`` adds the normalize
-    cases (run it at d = 16: the reduced model's heads).  Returns the max
+    cases: at d = 16 (the reduced model's heads) one column tile holds the
+    den column, at d = 128 a fifth tile holds it alone.  Returns the max
     absolute errors of the main-path case (bf16, first n, gamma): of
     dq/dk/dv, and of the forward's output and checkpoints."""
     import torch
@@ -1138,7 +1139,8 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"{name} ptxas: {line.strip()}")
-    for name in ("hla2_chunk_fwd", "hla2_chunk_bwd"):
+    for name in ("hla2_chunk_fwd", "hla2_chunk_bwd", "ahla_chunk_fwd",
+                 "ahla_chunk_bwd"):
         fn = getattr(_build.load(name, dict(builds)[name]), f"{name}_smem_bytes")
         fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_long
         smem = {dt: fn(128, int(dt == "bf16")) for dt in ("bf16", "fp32")}
@@ -1162,6 +1164,8 @@ def main() -> int:
     check_ahla_step(device, rows=8, d=16, n_prior=70)
     ahla_bwd_abs, ahla_ckpt_abs = check_ahla_chunk_bwd(device)
     check_ahla_chunk_bwd(device, rows=8, d=16, ns=(130, 7), small=True)
+    # normalize across four value tiles and the one-column den tile, ragged
+    check_ahla_chunk_bwd(device, rows=4, d=128, ns=(300,), small=True)
     torch.cuda.synchronize()
 
     check_small_model(device)

@@ -1,4 +1,5 @@
-// Chunkwise AHLA forward for Hopper (sm_90a): prompt prefill.
+// Chunkwise AHLA forward for Hopper (sm_90a): prompt prefill and the
+// training forward.
 //
 // Replaces: src/repro/kernels/ahla_chunk.py, ahla_chunk_pallas (body
 // _ahla_chunk_kernel), with initial_state and save_chunk_states.
@@ -10,47 +11,75 @@
 // (src/repro_torch/kernels/chunk_math.py, ahla_chunk_math):
 //   R  = p . (Q P0) + A V,      s = p . (Q m0) + A 1     (first-order [r|s])
 //   O  = p . (Q E0) + A R,    den = p . (Q n0) + A s     (o = O or O / den)
-//   P1 = rho P0 + (r . K)^T V,  m1 = rho m0 + (r . K)^T 1
-//   E1 = rho E0 + (r . K)^T R,  n1 = rho n0 + (r . K)^T s
+//   P1 = rho P0 + K^T (r . V),  m1 = rho m0 + K^T r
+//   E1 = rho E0 + K^T (r . R),  n1 = rho n0 + K^T (r . s)
 // (E1 in this form equals the reference's rho E0 + Kg^T (A V) + rho K^T Q P0,
 // since r[t] p[t] = rho; it needs no d x d product.)
 //
 // Bound on this card: operations.  A 64-token chunk at d = dv = 128 does
-// about 5.0 M FMAs per row against 64 KB of q/k/v/o traffic.  The products
-// run as fp32 FMAs on the CUDA cores (67 TFLOP/s), but the floor prices
-// each at the card's fastest fp32-accurate rate for its operands, on the
-// tensor cores (chip_smoke.ahla_chunk_fmas, _bound).
+// about 5.0 M FMAs per row against 64 KB of q/k/v/o traffic.  The floor
+// prices each product at the card's fastest fp32-accurate rate for its
+// operands (chip_smoke.ahla_chunk_fmas, _bound): 989 TFLOP/s for bf16 x
+// bf16, 989/3 for an input times an fp32 term, 495/3 for fp32 x fp32.
 //
 // Design: every value column of AHLA is independent of the others (each
 // column of P, E, R and O reads only its own column of V), except the den
 // column (the ones column of [V | 1]), which is a vector.  So a row is split
-// over CTAs of CW = 32 value columns each: grid (rows, dv / 32), 64 CTAs for
-// one hla-1b prompt instead of 16.  Each CTA keeps its columns of the carry P
-// and E, and a private copy of the vectors m and n, in shared memory for the
-// whole prompt: the carry never goes back to device memory between chunks,
-// and no CTA reads what another writes (the initial carry is a separate
-// input, the final carry is written once at the end; the first column tile
-// writes m and n).  For training each CTA also writes its columns of every
-// chunk's incoming carry to the checkpoints [P | m], [E | n] (BH, nc, d,
-// dv + 1: the reference's layout); the first column tile writes their den
-// column (m, n).  Q K^T and the vectors s, den, m, n are computed by every
-// CTA of a row: r x r x d and r x d per chunk, small beside the r x 32 x
-// (d + r) products.  Every product is a register-tiled SIMT loop (tile_mm).
-// A ragged tail is one shorter chunk of length r with its own decay powers
-// (rho = gamma^r): no zero padding and no division by gamma^pad.  Known
-// weaknesses: fp32 SIMT products, no tensor cores; Q K^T is computed four
-// times per row.
+// over CTAs of CW = 32 value columns each: grid (rows, ceil(dv / 32)), 64
+// CTAs for one hla-1b prompt, 128 for the train step's 32 rows.  Each CTA
+// keeps its columns of the carry P and E, and a private copy of the vectors
+// m and n, in shared memory for the whole row: the carry never goes back to
+// device memory between chunks, and no CTA reads what another writes (the
+// initial carry is a separate input, the final carry is written once at
+// the end; the first column tile writes m and n).  For training each CTA
+// also writes its columns of every chunk's incoming carry to the
+// checkpoints [P | m], [E | n] (BH, nc, d, dv + 1: the reference's layout);
+// the first column tile writes their den column (m, n).  Q K^T and the
+// vectors s, den, m, n are computed by every CTA of a row: r x r x d and
+// r x d per chunk, small beside the r x 32 x (d + r) products.
+//
+// Every product is a warp-level mma.sync (mma_tile.cuh): bf16 for Q K^T
+// with bf16 inputs, else split TF32, 2 MMAs where one side is a raw input
+// (all but A R, which takes 3).  Every operand is a plain tile read: p[t]
+// scales an output row and is applied in out(); r[t] lies on the
+// contraction index of the carry updates and lives in the fp32 tiles r . V
+// and r . R, formed once per chunk, so K stays a raw input operand; A is
+// stored once per chunk; a sum of two products is two calls whose second
+// accumulates into the first's output (same N, same thread per element).
+// The vectors s, den, m, n are SIMT loops.  A ragged tail is one shorter
+// chunk of length r with its own decay powers (rho = gamma^r): no zero
+// padding and no division by gamma^pad.  Products with the carry are
+// skipped on a first chunk that has no initial state (its carry is zero).
+//
+// Shared memory (157,444 bytes at d = 128 with bf16 inputs, 231,172 with
+// fp32): two stages of the chunk's Q, K (w x d) and the tile's V (w x 32)
+// in their input type, the next chunk's copied with cp.async while this
+// one computes; A (w x w); R, r . V, r . R and O (w x 32); P and E (d x
+// 32); m, n, s, den and the decay powers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
+
+#include "mma_tile.cuh"
 
 namespace {
+
+using mma_tile::cp_async_commit;
+using mma_tile::cp_async_wait;
+using mma_tile::group_sum;
+using mma_tile::mma_mm;
+using mma_tile::stage;
+using mma_tile::Tile;
 
 constexpr int W = 64;   // tokens per chunk tile (outputs do not depend on it)
 constexpr int CW = 32;  // value columns per CTA
 constexpr int THREADS = 256;
+constexpr int S = 2;    // stages of the raw inputs
+constexpr int GROUP = THREADS / W;  // threads per token in the row sums
+static_assert(THREADS % W == 0 && 32 % GROUP == 0, "token groups in warps");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -61,50 +90,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// out(r, c, sum_{kk < K} a(r, kk) * b(kk, c)) for every r < M, c < N.
-// Each work item owns a TM x TN micro-tile with rows tr + i*RG and columns
-// tc + j*CG, so the lanes of a warp read consecutive columns of b.
-template <int TM, int TN, class FA, class FB, class FO>
-__device__ __forceinline__ void tile_mm(int M, int N, int K, FA a, FB b,
-                                        FO out) {
-  const int RG = (M + TM - 1) / TM;
-  const int CG = (N + TN - 1) / TN;
-  for (int item = threadIdx.x; item < RG * CG; item += blockDim.x) {
-    const int tr = item / CG, tc = item % CG;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    for (int kk = 0; kk < K; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = tr + i * RG;
-        av[i] = r < M ? a(r, kk) : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = tc + j * CG;
-        bv[j] = c < N ? b(kk, c) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int r = tr + i * RG, c = tc + j * CG;
-        if (r < M && c < N) out(r, c, acc[i][j]);
-      }
-  }
+// input-type elements of one stage: Q, K (W x d), the tile's V (W x CW)
+__host__ __device__ size_t stage_elems(int d) {
+  return 2 * (size_t)W * d + W * CW;
 }
 
+// One block per SM (its shared memory leaves no room for a second); the
+// 1 lets ptxas use the registers that allows.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     ahla_chunk_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const float* __restrict__ gamma,
@@ -116,20 +110,22 @@ __global__ void __launch_bounds__(THREADS)
                           float* __restrict__ E, float* __restrict__ nv,
                           float* __restrict__ Pc, float* __restrict__ Ec,
                           int n, int d, int dv, int normalize, float eps) {
-  extern __shared__ float smem[];
-  const int dp = d + 1, wp = W + 1, cp = CW + 1;
-  float* Qs = smem;         // W x dp
-  float* Ks = Qs + W * dp;  // W x dp
-  float* A = Ks + W * dp;   // W x wp   (Q K^T) . Lg
-  float* Vs = A + W * wp;   // W x cp   this CTA's columns of V
-  float* Rs = Vs + W * cp;  // W x cp   first-order outputs r, same columns
-  float* Ps = Rs + W * cp;  // d x cp   carry P, same columns
-  float* Es = Ps + d * cp;  // d x cp   carry E, same columns
-  float* ms = Es + d * cp;  // d        carry m (private copy)
-  float* ns = ms + d;       // d        carry n (private copy)
-  float* sv = ns + d;       // W        s = first-order den column
-  float* den = sv + W;      // W        O's den column + eps
-  float* gp = den + W;      // W + 1    g^i
+  constexpr bool kIn = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tp = reinterpret_cast<T*>(smem_raw);  // S stages of Q, K, V
+  float* fs = reinterpret_cast<float*>(tp + S * stage_elems(d));
+  const Tile<float> A(fs, W);               // W x W  (Q K^T) . Lg
+  const Tile<float> R(A.p + W * W, CW);     // W x CW first-order outputs
+  const Tile<float> rV(R.p + W * CW, CW);   // W x CW r . V
+  const Tile<float> rR(rV.p + W * CW, CW);  // W x CW r . R
+  const Tile<float> O(rR.p + W * CW, CW);   // W x CW p . (Q E0), then O
+  const Tile<float> Ps(O.p + W * CW, CW);   // d x CW carry P, this tile's
+  const Tile<float> Es(Ps.p + d * CW, CW);  // d x CW carry E, columns
+  float* ms = Es.p + d * CW;  // d      carry m (private copy)
+  float* ns = ms + d;         // d      carry n (private copy)
+  float* sv = ns + d;         // W      s = first-order den column
+  float* den = sv + W;        // W      p . (Q n0), then O's den column + eps
+  float* gp = den + W;        // W + 1  g^i
 
   const size_t row = blockIdx.x;
   const int e0 = blockIdx.y * CW;
@@ -142,40 +138,60 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const float logg = logf(gamma ? gamma[row] : 1.f);
   const bool has_init = P0 != nullptr;
+  const int nc = (n + W - 1) / W;
 
+  auto stage_of = [=](int c) { return tp + (c % S) * stage_elems(d); };
+  // start copying chunk c's rows of q, k and the tile's columns of v
+  auto load_inputs = [=](int c) {
+    const int c0 = c * W, r = min(W, n - c0);
+    T* st = stage_of(c);
+    stage(Tile<T>(st, d), q + (size_t)c0 * d, r, d, d);
+    stage(Tile<T>(st + W * d, d), k + (size_t)c0 * d, r, d, d);
+    stage(Tile<T>(st + 2 * W * d, CW), v + (size_t)c0 * dv + e0, r, ew, dv);
+  };
+
+  load_inputs(0);
+  cp_async_commit();
   for (int i = tid; i < d * ew; i += THREADS) {
     const int a = i / ew, e = i - a * ew;
     const size_t src = so + (size_t)a * dv + e0 + e;
-    Ps[a * cp + e] = has_init ? P0[src] : 0.f;
-    Es[a * cp + e] = has_init ? E0[src] : 0.f;
+    Ps(a, e) = has_init ? P0[src] : 0.f;
+    Es(a, e) = has_init ? E0[src] : 0.f;
   }
   for (int a = tid; a < d; a += THREADS) {
     ms[a] = has_init ? m0[sm + a] : 0.f;
     ns[a] = has_init ? n0[sm + a] : 0.f;
   }
   for (int i = tid; i <= W; i += THREADS) gp[i] = expf(i * logg);
-  __syncthreads();
 
-  for (int c0 = 0; c0 < n; c0 += W) {
-    const int r = min(W, n - c0);
+  for (int c = 0; c < nc; ++c) {
+    const int c0 = c * W, r = min(W, n - c0);
     // a zero carry (first chunk, no initial state): skip its products
-    const int k0 = (c0 == 0 && !has_init) ? d : 0;
-    for (int i = tid; i < r * d; i += THREADS) {
-      const int t = i / d, a = i - t * d;
-      const size_t src = (size_t)(c0 + t) * d + a;
-      Qs[t * dp + a] = to_f(q[src]);
-      Ks[t * dp + a] = to_f(k[src]);
-    }
+    const bool carry = has_init || c > 0;
+    T* st = stage_of(c);
+    const Tile<T> Q(st, d), K(st + W * d, d), V(st + 2 * W * d, CW);
+    auto q_ = [=](int t, int a) { return to_f(Q(t, a)); };
+    auto kt_ = [=](int a, int t) { return to_f(K(t, a)); };  // K^T
+    if (c + 1 < nc) load_inputs(c + 1);  // into the stage chunk c - 1 left
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float rho = gp[r];
+
+    // ---- A = (Q K^T) . Lg, r . V, the checkpoint --------------------------
+    mma_mm<2, kIn, kIn>(
+        r, r, d, q_, [=](int a, int j) { return to_f(K(j, a)); },
+        [=](int t, int j, float x) { A(t, j) = j <= t ? gp[t - j] * x : 0.f; });
     for (int i = tid; i < r * ew; i += THREADS) {
       const int t = i / ew, e = i - t * ew;
-      Vs[t * cp + e] = to_f(v[(size_t)(c0 + t) * dv + e0 + e]);
+      rV(t, e) = gp[r - 1 - t] * to_f(V(t, e));
     }
     if (Pc) {  // checkpoint the chunk's incoming carry: this CTA's columns
-      const size_t ck = (row * ((n + W - 1) / W) + c0 / W) * d * (dv + 1);
+      const size_t ck = (row * nc + c) * d * (dv + 1);
       for (int i = tid; i < d * ew; i += THREADS) {
         const int a = i / ew, e = i - a * ew;
-        Pc[ck + (size_t)a * (dv + 1) + e0 + e] = Ps[a * cp + e];
-        Ec[ck + (size_t)a * (dv + 1) + e0 + e] = Es[a * cp + e];
+        Pc[ck + (size_t)a * (dv + 1) + e0 + e] = Ps(a, e);
+        Ec[ck + (size_t)a * (dv + 1) + e0 + e] = Es(a, e);
       }
       if (blockIdx.y == 0)
         for (int a = tid; a < d; a += THREADS) {
@@ -184,93 +200,98 @@ __global__ void __launch_bounds__(THREADS)
         }
     }
     __syncthreads();
-    const float rho = gp[r];
 
-    // A = (Q K^T) . Lg
-    tile_mm<4, 4>(
-        r, r, d, [=](int t, int a) { return Qs[t * dp + a]; },
-        [=](int a, int j) { return Ks[j * dp + a]; },
-        [=](int t, int j, float x) {
-          A[t * wp + j] = j <= t ? gp[t - j] * x : 0.f;
-        });
-    __syncthreads();
-
-    // [Q | A] against [P0 ; X]: g^(t+1) Q P0 + A X (the carry rows from k0)
-    auto qa = [=](int t, int kk) {
-      kk += k0;
-      return kk < d ? gp[t + 1] * Qs[t * dp + kk] : A[t * wp + kk - d];
-    };
-    // R = g^(t+1) (Q P0) + A V,  s = g^(t+1) (Q m0) + A 1
-    tile_mm<4, 2>(
-        r, ew, d + r - k0, qa,
-        [=](int kk, int e) {
-          kk += k0;
-          return kk < d ? Ps[kk * cp + e] : Vs[(kk - d) * cp + e];
-        },
-        [=](int t, int e, float x) { Rs[t * cp + e] = x; });
-    for (int t = tid; t < r; t += THREADS) {
-      float qm = 0.f, as = 0.f;
-      for (int a = 0; a < d - k0; ++a) qm = fmaf(Qs[t * dp + a], ms[a], qm);
-      for (int j = 0; j <= t; ++j) as += A[t * wp + j];
-      sv[t] = gp[t + 1] * qm + as;
-    }
-    __syncthreads();
-
-    if (normalize) {  // den = g^(t+1) (Q n0) + A s
-      for (int t = tid; t < r; t += THREADS) {
-        float qn = 0.f, as = 0.f;
-        for (int a = 0; a < d - k0; ++a) qn = fmaf(Qs[t * dp + a], ns[a], qn);
-        for (int j = 0; j <= t; ++j) as = fmaf(A[t * wp + j], sv[j], as);
-        den[t] = gp[t + 1] * qn + as + eps;
-      }
-      __syncthreads();
-    }
-
-    // o = g^(t+1) (Q E0) + A R   (/ den)
-    tile_mm<4, 2>(
-        r, ew, d + r - k0, qa,
-        [=](int kk, int e) {
-          kk += k0;
-          return kk < d ? Es[kk * cp + e] : Rs[(kk - d) * cp + e];
-        },
+    // ---- R = p . (Q P0) + A V and r . R; O = p . (Q E0); s; Q n0 ----------
+    if (carry)
+      mma_mm<2, kIn, false>(
+          r, ew, d, q_, [=](int a, int e) { return Ps(a, e); },
+          [=](int t, int e, float x) { R(t, e) = gp[t + 1] * x; });
+    mma_mm<2, false, kIn>(
+        r, ew, r, [=](int t, int j) { return A(t, j); },
+        [=](int j, int e) { return to_f(V(j, e)); },
         [=](int t, int e, float x) {
-          store(o + (size_t)(c0 + t) * dv + e0 + e,
-                normalize ? x / den[t] : x);
+          const float y = carry ? R(t, e) + x : x;
+          R(t, e) = y;
+          rR(t, e) = gp[r - 1 - t] * y;
         });
-    __syncthreads();  // every read of the old carry is done
+    if (carry)
+      mma_mm<2, kIn, false>(
+          r, ew, d, q_, [=](int a, int e) { return Es(a, e); },
+          [=](int t, int e, float x) { O(t, e) = gp[t + 1] * x; });
+    {  // s = p . (Q m0) + A 1 and p . (Q n0): GROUP threads per token
+      const int t = tid / GROUP, part = tid % GROUP;
+      float qm = 0.f, qn = 0.f, as = 0.f;
+      if (t < r) {
+        if (carry)
+          for (int a = part; a < d; a += GROUP) {
+            const float x = q_(t, a);
+            qm = fmaf(x, ms[a], qm);
+            qn = fmaf(x, ns[a], qn);
+          }
+        for (int j = part; j <= t; j += GROUP) as += A(t, j);
+      }
+      qm = group_sum<GROUP>(qm);
+      qn = group_sum<GROUP>(qn);
+      as = group_sum<GROUP>(as);
+      if (part == 0 && t < r) {
+        sv[t] = gp[t + 1] * qm + as;
+        den[t] = gp[t + 1] * qn;
+      }
+    }
+    __syncthreads();  // every read of the old P, E, m, n is done
 
-    // P1 = rho P0 + Kg^T V, E1 = rho E0 + Kg^T R, m1, n1 likewise with 1
-    // and s, Kg = g^(r-1-t) K: each element rewritten by the thread that
-    // reads its old value
-    auto kg = [=](int a, int t) { return gp[r - 1 - t] * Ks[t * dp + a]; };
-    tile_mm<4, 4>(
-        d, ew, r, kg, [=](int t, int e) { return Vs[t * cp + e]; },
-        [=](int a, int e, float x) {
-          Ps[a * cp + e] = rho * Ps[a * cp + e] + x;
+    // ---- the carry update; O += A R; den ---------------------------------
+    mma_mm<2, kIn, false>(  // P1 = rho P0 + K^T (r . V)
+        d, ew, r, kt_, [=](int t, int e) { return rV(t, e); },
+        [=](int a, int e, float x) { Ps(a, e) = rho * Ps(a, e) + x; });
+    mma_mm<2, kIn, false>(  // E1 = rho E0 + K^T (r . R)
+        d, ew, r, kt_, [=](int t, int e) { return rR(t, e); },
+        [=](int a, int e, float x) { Es(a, e) = rho * Es(a, e) + x; });
+    mma_mm<2, false, false>(  // O += A R; unnormalised, that is o
+        r, ew, r, [=](int t, int j) { return A(t, j); },
+        [=](int j, int e) { return R(j, e); },
+        [=](int t, int e, float x) {
+          const float y = carry ? O(t, e) + x : x;
+          if (normalize)
+            O(t, e) = y;
+          else
+            store(o + (size_t)(c0 + t) * dv + e0 + e, y);
         });
-    tile_mm<4, 4>(
-        d, ew, r, kg, [=](int t, int e) { return Rs[t * cp + e]; },
-        [=](int a, int e, float x) {
-          Es[a * cp + e] = rho * Es[a * cp + e] + x;
-        });
+    if (normalize) {  // den = p . (Q n0) + A s + eps
+      const int t = tid / GROUP, part = tid % GROUP;
+      float as = 0.f;
+      if (t < r)
+        for (int j = part; j <= t; j += GROUP) as = fmaf(A(t, j), sv[j], as);
+      as = group_sum<GROUP>(as);
+      if (part == 0 && t < r) den[t] += as + eps;
+    }
+    // m1 = rho m0 + K^T r, n1 = rho n0 + K^T (r . s)
     for (int a = tid; a < d; a += THREADS) {
       float km = 0.f, kn = 0.f;
       for (int t = 0; t < r; ++t) {
-        const float x = kg(a, t);
+        const float x = gp[r - 1 - t] * kt_(a, t);
         km += x;
         kn = fmaf(x, sv[t], kn);
       }
       ms[a] = rho * ms[a] + km;
       ns[a] = rho * ns[a] + kn;
     }
-    __syncthreads();  // the new carry and free tiles before the next chunk
+    __syncthreads();
+
+    if (normalize) {  // o = O / den
+      for (int i = tid; i < r * ew; i += THREADS) {
+        const int t = i / ew, e = i - t * ew;
+        store(o + (size_t)(c0 + t) * dv + e0 + e, O(t, e) / den[t]);
+      }
+      __syncthreads();
+    }
   }
 
   for (int i = tid; i < d * ew; i += THREADS) {
     const int a = i / ew, e = i - a * ew;
     const size_t dst = so + (size_t)a * dv + e0 + e;
-    P[dst] = Ps[a * cp + e];
-    E[dst] = Es[a * cp + e];
+    P[dst] = Ps(a, e);
+    E[dst] = Es(a, e);
   }
   if (blockIdx.y == 0) {
     for (int a = tid; a < d; a += THREADS) {
@@ -280,13 +301,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Shared-memory bytes for head dims d, dv (135,172 at d = 128); a size above
-// the 227 KB limit makes cudaFuncSetAttribute fail the launch.
-size_t smem_bytes(int d) {
-  const size_t floats = (size_t)2 * W * (d + 1) + W * (W + 1) +
-                        2 * W * (CW + 1) + 2 * (size_t)d * (CW + 1) + 2 * d +
-                        2 * W + W + 1;
-  return floats * sizeof(float);
+// Shared-memory bytes for head dim d and input type size tsize (157,444 at
+// d = 128 with bf16 inputs, 231,172 with fp32; see the note at the top); a
+// size above the 227 KB limit makes cudaFuncSetAttribute fail the launch.
+size_t smem_bytes(int d, size_t tsize) {
+  const size_t floats = (size_t)W * W + 4 * (size_t)W * CW +
+                        2 * (size_t)d * CW + 2 * (size_t)d + 2 * W + (W + 1);
+  return S * stage_elems(d) * tsize + floats * sizeof(float);
 }
 
 template <typename T>
@@ -296,7 +317,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int d, int dv, int normalize, float eps,
                    cudaStream_t stream) {
   auto kern = ahla_chunk_fwd_kernel<T>;
-  const size_t smem = smem_bytes(d);
+  const size_t smem = smem_bytes(d, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -336,6 +357,11 @@ int ahla_chunk_fwd(const void* q, const void* k, const void* v,
                 : launch<float>(q, k, v, gamma, init, o, out, Pc, Ec, BH, n,
                                 d, dv, normalize, eps, s);
   return (int)err;
+}
+
+// Dynamic shared-memory bytes the kernel asks for.
+long ahla_chunk_fwd_smem_bytes(int d, int is_bf16) {
+  return (long)smem_bytes(d, is_bf16 ? 2 : 4);
 }
 
 }  // extern "C"

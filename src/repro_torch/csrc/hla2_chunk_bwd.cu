@@ -61,6 +61,7 @@
 
 namespace {
 
+using mma_tile::group_sum;
 using mma_tile::mma_mm;
 using mma_tile::prefetch_l2;
 using mma_tile::Tile;
@@ -82,13 +83,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 constexpr int GROUP = THREADS / W;  // threads per token in the row sums
 static_assert(THREADS % W == 0 && 32 % GROUP == 0, "token groups in warps");
-
-// the sum over a token's GROUP consecutive lanes, in every one of them
-__device__ __forceinline__ float group_sum(float x) {
-  for (int off = GROUP / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 __host__ __device__ int n_tiles(int dv) { return (dv + CW - 1) / CW; }
 
@@ -333,7 +327,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           dr = fmaf(YQ[t * d + a], q_(t, a), dr);
         }
       }
-      dr = group_sum(dr);
+      dr = group_sum<GROUP>(dr);
       if (part == 0 && t < L - 1) dg += dr * (L - 1 - t) * gp[L - 2 - t];
     }
     // the carry cotangents in place: dS0 = rho dS1, dC0' = rho (dC1' +
@@ -454,8 +448,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = part; j <= t; j += GROUP)
           s2 = fmaf(gp[t - j] * X2[t * W + j], TE[t * W + j], s2);
       }
-      const float dpt = 2.f * gp[t + 1] * group_sum(s1) + group_sum(s2) +
-                        lam * group_sum(s3);
+      const float dpt = 2.f * gp[t + 1] * group_sum<GROUP>(s1) +
+                        group_sum<GROUP>(s2) + lam * group_sum<GROUP>(s3);
       if (part == 0 && t < L) dg += dpt * (t + 1) * gp[t];
     }
     __syncthreads();

@@ -33,9 +33,11 @@
 // warp runs the same items (mma.sync is warp-wide): call from all threads
 // of the block, outside any lane-divergent branch.
 //
-// Beside it, two helpers both chunk kernels use: Tile, a shared-memory
-// tile laid out so that fragment reads meet no bank conflict, and
-// prefetch_l2.
+// Beside it, helpers the chunk kernels use: Tile, a shared-memory tile
+// laid out so that fragment reads meet no bank conflict; prefetch_l2;
+// stage, which copies a block of rows into a Tile with cp.async (the AHLA
+// kernels stage the next chunk while the current one computes); and
+// group_sum, a sum over a few neighbouring lanes.
 
 #pragma once
 
@@ -69,6 +71,67 @@ __device__ __forceinline__ void prefetch_l2(const void* base, size_t bytes) {
   for (size_t off = (size_t)threadIdx.x * 128; off < bytes;
        off += (size_t)blockDim.x * 128)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(p + off));
+}
+
+// cp.async of Bytes (4, 8 or 16) from device to shared memory; the copy
+// completes asynchronously, in the group that the next commit closes
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(Bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight (a
+// __syncthreads() after it makes every thread's copies visible)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying rows x cols of a row-major array in device memory (ld
+// elements apart) into t, all threads of the block taking part.  Tile
+// keeps every aligned group of 4 columns contiguous, so a group moves as
+// one cp.async of 4 elements where the addresses allow; otherwise element
+// by element (fp32 by cp.async, a 2-byte element, which cp.async cannot
+// move alone, by a plain copy).
+template <typename E>
+__device__ __forceinline__ void stage(const Tile<E>& t, const E* src,
+                                      int rows, int cols, size_t ld) {
+  constexpr int G = 4 * sizeof(E);  // bytes of a group of 4 elements
+  if (cols % 4 == 0 && ld % 4 == 0 && t.w % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(src) % G == 0) {
+    const int gc = cols / 4;
+    for (int i = threadIdx.x; i < rows * gc; i += blockDim.x) {
+      const int r = i / gc, c = (i - r * gc) * 4;
+      cp_async<G>(&t(r, c), src + r * ld + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int r = i / cols, c = i - r * cols;
+      if constexpr (sizeof(E) == 4)
+        cp_async<4>(&t(r, c), src + r * ld + c);
+      else
+        t(r, c) = src[r * ld + c];
+    }
+  }
+}
+
+// the sum of x over each aligned group of G lanes, in every one of them
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
 
