@@ -8,14 +8,15 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
 1. build the hand-written kernels from ``src/repro_torch/csrc`` (six: the
    HLA2 chunkwise forward, decode step and chunkwise backward, the AHLA
    chunkwise forward, decode step and chunkwise backward; one nvcc per
-   source, all at once) and print nvcc's register report and the four
-   chunk kernels' shared memory;
+   source, all at once), print nvcc's register report and the four
+   chunk kernels' shared memory, and fail on a spill in a step kernel;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (hla-1b rows, head dim 128): the forwards and the
-   steps at serving shapes, the forwards' checkpoints and the backwards at
-   the train phase's (32 rows x 2048 tokens), the backwards' normalize
-   (and HLA2's lam) cases at d = 16 and across the column tiles of
-   d = 128;
+   steps at serving shapes (the steps over 4 tokens in a row, also at
+   d = 16 and at a ragged d = 72, dv = 40), the forwards' checkpoints and
+   the backwards at the train phase's (32 rows x 2048 tokens), the
+   backwards' normalize (and HLA2's lam) cases at d = 16 and across the
+   column tiles of d = 128;
 3. check the port against its plain path on a small model (card vs CPU):
    prefill + decode logits, and the training loss and every parameter's
    gradient, with either mixer; and at full width that prefill(L) + one
@@ -29,7 +30,8 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    2 x 2048 batch, once with either mixer, count the kernel launches of
    each run (24 forward + 24 backward per step of its mixer's kernels, no
    other, no plain version) and check the loss falls;
-6. time each kernel and its plain version at its path's shapes.
+6. time each kernel and its plain version at its path's shapes (the step
+   kernels also at 16 rows, one slot).
 
 The second-to-last line is the ``kernels`` JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import statistics
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
@@ -229,45 +232,51 @@ def check_chunk_bwd(device, rows=32, d=128, ns=(2048, 300), small=False):
     return main_abs
 
 
-def check_step(device, rows=64, d=128, n_prior=300):
-    """hla2_step vs hla2_step_plain after a prefill, both in place.  Returns
-    the max absolute output error of the main-path case (bf16)."""
+def check_step(device, rows=64, d=128, dv=None, n_prior=300, steps=4):
+    """hla2_step vs hla2_step_plain over ``steps`` tokens after a prefill,
+    both in place (a race on the in-place vectors shows in a later step).
+    Returns the max absolute output error of the main-path case (bf16,
+    first step)."""
     import torch
 
     from repro_torch.kernels.decode_step import hla2_step, hla2_step_plain
     from repro_torch.kernels.hla2_chunk import hla2_chunk_fwd
 
+    dv = d if dv is None else dv
     gen = torch.Generator(device=device).manual_seed(1)
     main_abs = None
     for dt, norm, lam, use_gamma in ((torch.bfloat16, False, 0.0, True),
                                      (torch.float32, False, 0.0, True),
                                      (torch.float32, True, 0.2, True),
                                      (torch.float32, False, 0.0, False)):
-        qp, kp, vp, g = _inputs(gen, rows, n_prior, d, d, dt, device,
+        qp, kp, vp, g = _inputs(gen, rows, n_prior, d, dv, dt, device,
                                 positive=norm)
         g = g if use_gamma else None
-        _, st0 = hla2_chunk_fwd(qp, kp, vp, g)  # the prefill the step resumes
-        q, k, v, _ = _inputs(gen, rows, 1, d, d, dt, device, positive=norm)
-        q, k, v = q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous()
+        _, st0 = hla2_chunk_fwd(qp, kp, vp, g)  # the prefill the steps resume
         s_k = [x.clone() for x in st0]
         s_p = [x.clone() for x in st0]
         ptrs = [x.data_ptr() for x in s_k]
-        o_k = hla2_step(s_k, q, k, v, g, normalize=norm, lam=lam)
-        o_p = hla2_step_plain(s_p, q, k, v, g, normalize=norm, lam=lam)
+        e_o = 0.0
+        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
+        for _ in range(steps):
+            q, k, v, _ = _inputs(gen, rows, 1, d, dv, dt, device,
+                                 positive=norm)
+            q, k, v = (x[:, 0].contiguous() for x in (q, k, v))
+            o_k = hla2_step(s_k, q, k, v, g, normalize=norm, lam=lam)
+            o_p = hla2_step_plain(s_p, q, k, v, g, normalize=norm, lam=lam)
+            e_o = max(e_o, rel_err(o_k, o_p))
+            if main_abs is None:
+                main_abs = abs_err(o_k, o_p)
         if [x.data_ptr() for x in s_k] != ptrs or any(
                 torch.equal(a, b) for a, b in zip(s_k, st0)):
             raise AssertionError("hla2_step did not update its state in place")
-        e_o = rel_err(o_k, o_p)
         e_s = max(rel_err(a, b) for a, b in zip(s_k, s_p))
-        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
-        log(f"hla2_step {str(dt)[6:]} rows={rows} d={d} after prefill "
-            f"{n_prior} gamma={use_gamma} normalize={norm} lam={lam}: "
-            f"o rel {e_o:.2e} (tol {tol:.0e}), "
+        log(f"hla2_step {str(dt)[6:]} rows={rows} d={d} dv={dv} after "
+            f"prefill {n_prior}, {steps} steps, gamma={use_gamma} "
+            f"normalize={norm} lam={lam}: o rel {e_o:.2e} (tol {tol:.0e}), "
             f"state rel {e_s:.2e} (tol {TOL_FP32:.0e})")
         if not (e_o <= tol and e_s <= TOL_FP32):
             raise AssertionError("hla2_step disagrees with its plain version")
-        if main_abs is None:
-            main_abs = abs_err(o_k, o_p)
     return main_abs
 
 
@@ -317,7 +326,7 @@ def check_ahla_chunk(device, rows=16, d=128, ns=(512, 300)):
     return main_abs
 
 
-def check_ahla_step(device, rows=64, d=128, n_prior=300, steps=4):
+def check_ahla_step(device, rows=64, d=128, dv=None, n_prior=300, steps=4):
     """ahla_step vs ahla_step_plain over ``steps`` tokens after a prefill,
     both in place; then prefill(n_prior) + one step == prefill(n_prior + 1)
     through ``ops`` (kernels on both sides), in o and every state leaf.
@@ -327,13 +336,14 @@ def check_ahla_step(device, rows=64, d=128, n_prior=300, steps=4):
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_step import ahla_step, ahla_step_plain
 
+    dv = d if dv is None else dv
     gen = torch.Generator(device=device).manual_seed(11)
     main_abs = None
     for dt, norm, use_gamma in ((torch.bfloat16, False, True),
                                 (torch.float32, False, True),
                                 (torch.float32, True, True),
                                 (torch.float32, False, False)):
-        qp, kp, vp, g = _inputs(gen, rows, n_prior, d, d, dt, device,
+        qp, kp, vp, g = _inputs(gen, rows, n_prior, d, dv, dt, device,
                                 positive=norm)
         g = g if use_gamma else None
         # the prefill the steps resume from, R included: (1, rows) heads
@@ -345,7 +355,7 @@ def check_ahla_step(device, rows=64, d=128, n_prior=300, steps=4):
         e_o = 0.0
         tol = TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
         for _ in range(steps):
-            q, k, v, _ = _inputs(gen, rows, 1, d, d, dt, device,
+            q, k, v, _ = _inputs(gen, rows, 1, d, dv, dt, device,
                                  positive=norm)
             q, k, v = (x[:, 0].contiguous() for x in (q, k, v))
             o_k = ahla_step(s_k, q, k, v, g, normalize=norm)
@@ -357,15 +367,17 @@ def check_ahla_step(device, rows=64, d=128, n_prior=300, steps=4):
                 torch.equal(a, b) for a, b in zip(s_k, st0)):
             raise AssertionError("ahla_step did not update its state in place")
         e_s = max(rel_err(a, b) for a, b in zip(s_k, s_p))
-        log(f"ahla_step {str(dt)[6:]} rows={rows} d={d} after prefill "
-            f"{n_prior}, {steps} steps, gamma={use_gamma} normalize={norm}: "
+        log(f"ahla_step {str(dt)[6:]} rows={rows} d={d} dv={dv} after "
+            f"prefill {n_prior}, {steps} steps, gamma={use_gamma} "
+            f"normalize={norm}: "
             f"o rel {e_o:.2e} (tol {tol:.0e}), "
             f"state rel {e_s:.2e} (tol {TOL_FP32:.0e})")
         if not (e_o <= tol and e_s <= TOL_FP32):
             raise AssertionError("ahla_step disagrees with its plain version")
 
     # the carry identity through both kernels, fp32
-    q, k, v, g = _inputs(gen, rows, n_prior + 1, d, d, torch.float32, device)
+    q, k, v, g = _inputs(gen, rows, n_prior + 1, d, dv, torch.float32,
+                         device)
     q, k, v = q[None], k[None], v[None]  # (1, rows) heads
     o_full, st_full = ops.ahla_prefill(q, k, v, g)
     _, st = ops.ahla_prefill(q[:, :, :n_prior].contiguous(),
@@ -376,8 +388,8 @@ def check_ahla_step(device, rows=64, d=128, n_prior=300, steps=4):
     e_o = rel_err(o_t, o_full[:, :, n_prior])
     e_s = max(rel_err(a, b) for a, b in zip(st, st_full))
     log(f"ahla prefill({n_prior}) + step vs prefill({n_prior + 1}), fp32 "
-        f"rows={rows} d={d}: o rel {e_o:.2e}, state rel {e_s:.2e} (tol "
-        f"{TOL_FP32:.0e})")
+        f"rows={rows} d={d} dv={dv}: o rel {e_o:.2e}, state rel "
+        f"{e_s:.2e} (tol {TOL_FP32:.0e})")
     if not (e_o <= TOL_FP32 and e_s <= TOL_FP32):
         raise AssertionError("ahla prefill + step != longer prefill")
     return main_abs
@@ -989,11 +1001,59 @@ def time_train_kernels(device, mixer, bwd_abs, ckpt_abs, launches, rows=32,
              library_ms=None)]
 
 
+def time_step(device, mixer, gen, rows, d=128, plain=True):
+    """``mixer``'s step kernel (and its plain version) at ``rows`` rows, bf16
+    q, k, v, gamma, fp32 state.  Returns ``(ms, plain_ms, bound_ms,
+    bound_by)``, ``plain_ms`` None unless ``plain``."""
+    import torch
+
+    from repro_torch.kernels import decode_step, ops
+    from repro_torch.kernels.hla2_chunk import hla2_chunk_fwd
+
+    bf = torch.bfloat16
+    q, k, v, g = _inputs(gen, rows, 1, d, d, bf, device)
+    q, k, v = (x[:, 0].contiguous() for x in (q, k, v))
+    qp, kp, vp, _ = _inputs(gen, rows, 64, d, d, bf, device)
+    if mixer == "hla2":
+        _, st0 = hla2_chunk_fwd(qp, kp, vp, g)
+        # FMAs per row: 2 per element of S (update, u), 4 per element of C
+        # (k, u, q reductions, update), 2 per element of G (update, q
+        # reduction)
+        fmas = 8 * d * d
+    else:
+        _, st0 = ops.ahla_prefill(qp[None], kp[None], vp[None], g)
+        st0 = [x[0] for x in st0]
+        # FMAs per row: 2 per element of P and of E (update, q reduction),
+        # 1 per element of R
+        fmas = 5 * d * d
+    step = getattr(decode_step, f"{mixer}_step")
+    step_plain = getattr(decode_step, f"{mixer}_step_plain")
+    # one state per layer of a 24-layer stack would not fit in L2: rotate
+    # over copies twice the 50 MB L2 (8 x 12.6 MB = 101 MB at 64 rows, 32 x
+    # 3.2 MB at 16) so every launch finds its state cold
+    state_bytes = 4 * sum(x.numel() for x in st0)
+    n_st = max(8, -(-100_000_000 // state_bytes))
+    states = [[x.clone() for x in st0] for _ in range(n_st)]
+    ms = median_ms(lambda i: step(states[i % n_st], q, k, v, g), 40)
+    plain_ms = median_ms(
+        lambda i: step_plain(states[i % n_st], q, k, v, g), 10) \
+        if plain else None
+    # the fp32 state read and written once; q, k, v in and o out, counted
+    # as bf16 (2 bytes: only the bf16 case is timed); gamma in
+    nbytes = 2 * state_bytes + 2 * rows * 4 * d + 4 * rows
+    bound, by = _bound(nbytes, (fmas,), rows, (PEAK_FP32_FLOP_S,))
+    log(f"{mixer}_step at rows {rows} d {d}, bf16 in, fp32 state, {n_st} "
+        f"states rotated: {ms:.4f} ms"
+        + (f", plain {plain_ms:.4f} ms" if plain else "")
+        + f", bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 "
+        f"TB/s; {nbytes / ms / 1e9:.2f} TB/s achieved)")
+    return ms, plain_ms, bound, by
+
+
 def time_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
                  n=512, rows_step=64, d=128):
     import torch
 
-    from repro_torch.kernels.decode_step import hla2_step, hla2_step_plain
     from repro_torch.kernels.hla2_chunk import (
         hla2_chunk_fwd, hla2_chunk_fwd_plain)
 
@@ -1015,30 +1075,15 @@ def time_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
         f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}: "
         f"{_ops_text(fmas, rows_chunk)}; {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
 
-    # one state per layer of a 24-layer stack would not fit in L2; rotate
-    # over 8 copies (~100 MB) so every launch finds its state cold
-    q, k, v, g = _inputs(gen, rows_step, 1, d, d, bf, device)
-    q, k, v = q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous()
-    _, st0 = hla2_chunk_fwd(*_inputs(gen, rows_step, 64, d, d, bf, device))
-    states = [[x.clone() for x in st0] for _ in range(8)]
-    ms_s = median_ms(lambda i: hla2_step(states[i % 8], q, k, v, g), 40)
-    plain_s = median_ms(
-        lambda i: hla2_step_plain(states[i % 8], q, k, v, g), 10)
-    state_bytes = 4 * rows_step * (3 * d * d + 2 * d)
-    nbytes = 2 * state_bytes + 2 * rows_step * 4 * d + 4 * rows_step
-    # FMAs per row: 2 per element of S (update, u), 4 per element of C
-    # (k, u, q reductions, update), 2 per element of G (update, q reduction)
-    flops = 2 * rows_step * (2 * d * d + 6 * d * d)
-    t_b, t_f = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_FP32_FLOP_S
+    ms_s, plain_s, bound_s, by_s = time_step(device, "hla2", gen, rows_step,
+                                             d)
     step = dict(
         name="hla2_step", route="cuda", source=STEP_SRC,
         replaces="src/repro/kernels/decode_step.py:127",
         launches=launches.get("hla2_step", 0), max_abs_err=step_abs,
-        ms=ms_s, plain_ms=plain_s, bound_ms=max(t_b, t_f),
-        bound_by="bytes" if t_b > t_f else "operations", library_ms=None)
-    log(f"hla2_step at rows {rows_step} d {d}, bf16 in, fp32 state, 8 states "
-        f"rotated: {ms_s:.4f} ms, plain {plain_s:.4f} ms, bound "
-        f"{step['bound_ms']:.4f} ms ({step['bound_by']})")
+        ms=ms_s, plain_ms=plain_s, bound_ms=bound_s, bound_by=by_s,
+        library_ms=None)
+    time_step(device, "hla2", gen, 16, d, plain=False)  # one slot
     return [chunk, step]
 
 
@@ -1048,10 +1093,8 @@ def time_ahla_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
     serve run's shapes (bf16 inputs, gamma, fp32 carry)."""
     import torch
 
-    from repro_torch.kernels import ops
     from repro_torch.kernels.ahla_chunk import (
         ahla_chunk_fwd, ahla_chunk_fwd_plain)
-    from repro_torch.kernels.decode_step import ahla_step, ahla_step_plain
 
     gen = torch.Generator(device=device).manual_seed(12)
     bf = torch.bfloat16
@@ -1072,34 +1115,15 @@ def time_ahla_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
         f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}: "
         f"{_ops_text(fmas, rows_chunk)}; {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
 
-    # one state per layer of a 24-layer stack would not fit in L2; rotate
-    # over 8 copies (~200 MB) so every launch finds its state cold
-    q, k, v, g = _inputs(gen, rows_step, 1, d, d, bf, device)
-    qp, kp, vp, _ = _inputs(gen, rows_step, 64, d, d, bf, device)
-    _, st0 = ops.ahla_prefill(qp[None], kp[None], vp[None], g)
-    st0 = [x[0] for x in st0]
-    q, k, v = q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous()
-    states = [[x.clone() for x in st0] for _ in range(8)]
-    ms_s = median_ms(lambda i: ahla_step(states[i % 8], q, k, v, g), 40)
-    plain_s = median_ms(
-        lambda i: ahla_step_plain(states[i % 8], q, k, v, g), 10)
-    # the fp32 state R, P, m, E, n read and written once; q, k, v in and o
-    # out (bf16); gamma in
-    state_bytes = 4 * rows_step * (d * d + 2 * d * d + 2 * d)
-    nbytes = 2 * state_bytes + 2 * rows_step * 4 * d + 4 * rows_step
-    # FMAs per row: 2 per element of P and of E (update, q reduction), 1
-    # per element of R; all fp32
-    bound_s, by_s = _bound(nbytes, (5 * d * d,), rows_step,
-                           (PEAK_FP32_FLOP_S,))
+    ms_s, plain_s, bound_s, by_s = time_step(device, "ahla", gen, rows_step,
+                                             d)
     step = dict(
         name="ahla_step", route="cuda", source=AHLA_STEP_SRC,
         replaces="src/repro/kernels/decode_step.py:250",
         launches=launches.get("ahla_step", 0), max_abs_err=step_abs,
         ms=ms_s, plain_ms=plain_s, bound_ms=bound_s, bound_by=by_s,
         library_ms=None)
-    log(f"ahla_step at rows {rows_step} d {d}, bf16 in, fp32 state, 8 states "
-        f"rotated: {ms_s:.4f} ms, plain {plain_s:.4f} ms, bound "
-        f"{bound_s:.4f} ms ({by_s}: {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+    time_step(device, "ahla", gen, 16, d, plain=False)  # one slot
     return [chunk, step]
 
 
@@ -1139,6 +1163,10 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"{name} ptxas: {line.strip()}")
+    for name in ("hla2_step", "ahla_step"):
+        spills = re.findall(r"(\d+) bytes spill", _build.build_log(name))
+        if not spills or any(int(x) for x in spills):
+            raise AssertionError(f"{name}: ptxas reports spills {spills}")
     for name in ("hla2_chunk_fwd", "hla2_chunk_bwd", "ahla_chunk_fwd",
                  "ahla_chunk_bwd"):
         fn = getattr(_build.load(name, dict(builds)[name]), f"{name}_smem_bytes")
@@ -1154,6 +1182,8 @@ def main() -> int:
     step_abs = check_step(device)
     check_chunk(device, rows=8, d=16, ns=(130, 7))  # reduced hla-1b heads
     check_step(device, rows=8, d=16, n_prior=70)
+    # ragged: d != dv, and the last column slice of each narrower
+    check_step(device, rows=6, d=72, dv=40, n_prior=70)
     bwd_abs, ckpt_abs = check_chunk_bwd(device)
     check_chunk_bwd(device, rows=8, d=16, ns=(130, 7), small=True)
     # normalize and lam across four column tiles, ragged
@@ -1162,6 +1192,7 @@ def main() -> int:
     ahla_step_abs = check_ahla_step(device)
     check_ahla_chunk(device, rows=8, d=16, ns=(130, 7))
     check_ahla_step(device, rows=8, d=16, n_prior=70)
+    check_ahla_step(device, rows=6, d=72, dv=40, n_prior=70)  # ragged
     ahla_bwd_abs, ahla_ckpt_abs = check_ahla_chunk_bwd(device)
     check_ahla_chunk_bwd(device, rows=8, d=16, ns=(130, 7), small=True)
     # normalize across four value tiles and the one-column den tile, ragged

@@ -5,7 +5,10 @@ Twin of ``repro/kernels/decode_step.py`` (``hla2_step_pallas``,
 ``ahla_step_pallas``): one token of the streaming recurrence for every
 (slot, head) row in one launch, the state updated in place (the TPU kernels
 alias their state operands to their outputs).  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises.  Each kernel spreads a
+row over a cluster of CTAs, each owning a column slice of the state that
+the TMA copy engine brings in: on the card d and dv are multiples of 4, d
+at most 256 and dv at most 1024.
 """
 
 from __future__ import annotations
@@ -54,6 +57,19 @@ def _check(state, q, k, v, gamma, leaves="(S, C, m, G, h)"):
             raise ValueError(f"tensors on {q.device} and {x.device}")
 
 
+def _check_cuda_shape(name, d, dv, state):
+    """What the CUDA kernels take: a column slice of each state matrix is
+    one TMA copy (at most 256 rows and 256 columns, in 16-byte rows), and m,
+    h (or n) are copied whole."""
+    if d % 4 or dv % 4 or d > 256 or dv > 1024:
+        raise ValueError(
+            f"{name}'s CUDA kernel takes d and dv multiples of 4, d <= 256 "
+            f"and dv <= 1024; got d = {d}, dv = {dv}")
+    if any(x.data_ptr() % 16 for x in state):
+        raise ValueError(f"{name}'s CUDA kernel copies its state in 16-byte "
+                         "pieces: every state tensor must be 16-byte aligned")
+
+
 def hla2_step_plain(state, q, k, v, gamma=None, *, normalize: bool = False,
                     eps: float = 1e-6, lam: float = 0.0):
     """Plain PyTorch version of the kernel, with the same in-place update of
@@ -86,6 +102,7 @@ def hla2_step(state, q, k, v, gamma=None, *, normalize: bool = False,
     _build.refuse_grad("hla2_step", tensors)
     BH, d = q.shape
     dv = v.shape[-1]
+    _check_cuda_shape("hla2_step", d, dv, state)
     o = torch.empty_like(v)
     lib = _build.load("hla2_step", _SIG)
     err = lib.hla2_step(
@@ -133,6 +150,7 @@ def ahla_step(state, q, k, v, gamma=None, *, normalize: bool = False,
     _build.refuse_grad("ahla_step", tensors)
     BH, d = q.shape
     dv = v.shape[-1]
+    _check_cuda_shape("ahla_step", d, dv, state)
     o = torch.empty_like(v)
     lib = _build.load("ahla_step", _AHLA_SIG)
     err = lib.ahla_step(
