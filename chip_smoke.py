@@ -13,7 +13,9 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (hla-1b rows, head dim 128): the forwards and the
    steps at serving shapes (the steps over 4 tokens in a row, also at
-   d = 16 and at a ragged d = 72, dv = 40), the forwards' checkpoints and
+   d = 16 and at a ragged d = 72, dv = 40), the forwards at the verify
+   shape too (64 rows x k+1 = 5 tokens and 1 token, with and without a
+   carry, which must be left as it was), the forwards' checkpoints and
    the backwards at the train phase's (32 rows x 2048 tokens), the
    backwards' normalize (and HLA2's lam) cases at d = 16 and across the
    column tiles of d = 128;
@@ -26,12 +28,23 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    once with the HLA2 mixer and once with AHLA (``mixer="ahla"``), count
    the kernel launches of each run and time the chunk kernel's launches in
    it;
-5. train hla-1b at full width and depth for 5 AdamW steps on one repeated
+5. serve the same requests speculatively (``Engine(spec=...)``, k = 4),
+   with either mixer on the same weights: in fp32, speculative greedy with
+   the n-gram drafter and with an always-wrong drafter (every round rolls
+   back) must equal plain greedy token for token; in bf16, with the n-gram
+   and the draft-LM drafter (reduced hla-1b, random weights), log decode
+   tok/s, acceptance, rounds, replays and ms per round, and fail where a
+   stream parts from plain bf16 greedy at a top-2 logit gap above the
+   bound the phase measures; every run serves all requests ``ok``, trips
+   no breaker, and launches exactly the kernels its stats imply (target
+   and draft model), no plain version;
+6. train hla-1b at full width and depth for 5 AdamW steps on one repeated
    2 x 2048 batch, once with either mixer, count the kernel launches of
    each run (24 forward + 24 backward per step of its mixer's kernels, no
    other, no plain version) and check the loss falls;
-6. time each kernel and its plain version at its path's shapes (the step
-   kernels also at 16 rows, one slot).
+7. time each kernel and its plain version at its path's shapes (the step
+   kernels also at 16 rows, one slot; the chunk forwards also at the
+   verify shape, ``[verify]``).
 
 The second-to-last line is the ``kernels`` JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -135,9 +148,10 @@ def _inputs(gen, rows, n, d, dv, dtype, device, positive=False):
 # --------------------------------------------------------------------------
 
 
-def check_chunk(device, rows=16, d=128, ns=(512, 300)):
-    """hla2_chunk_fwd vs hla2_chunk_fwd_plain.  Returns the max absolute
-    output error of the main-path case (bf16, first n, no carry)."""
+def check_chunk(device, rows=16, d=128, ns=(512, 300), main_init=False):
+    """hla2_chunk_fwd vs hla2_chunk_fwd_plain, and the initial carry left as
+    it was.  Returns the max absolute output error of the main-path case
+    (bf16, first n, with a carry if ``main_init``: the verify shape)."""
     import torch
 
     from repro_torch.kernels.hla2_chunk import (
@@ -172,7 +186,7 @@ def check_chunk(device, rows=16, d=128, ns=(512, 300)):
                                  "version")
         if any(not torch.equal(a, b) for a, b in zip(before, prior)):
             raise AssertionError("hla2_chunk_fwd modified initial_state")
-        if main_abs is None:
+        if main_abs is None and init == main_init:
             main_abs = abs_err(o_k, o_p)
     return main_abs
 
@@ -280,10 +294,11 @@ def check_step(device, rows=64, d=128, dv=None, n_prior=300, steps=4):
     return main_abs
 
 
-def check_ahla_chunk(device, rows=16, d=128, ns=(512, 300)):
+def check_ahla_chunk(device, rows=16, d=128, ns=(512, 300), main_init=False):
     """ahla_chunk_fwd vs ahla_chunk_fwd_plain: o and all four carry leaves,
     and the initial carry left as it was.  Returns the max absolute output
-    error of the main-path case (bf16, first n, no carry)."""
+    error of the main-path case (bf16, first n, with a carry if
+    ``main_init``: the verify shape)."""
     import torch
 
     from repro_torch.kernels.ahla_chunk import (
@@ -321,7 +336,7 @@ def check_ahla_chunk(device, rows=16, d=128, ns=(512, 300)):
                                  "version")
         if any(not torch.equal(a, b) for a, b in zip(before, st0 or ())):
             raise AssertionError("ahla_chunk_fwd modified initial_state")
-        if main_abs is None:
+        if main_abs is None and init == main_init:
             main_abs = abs_err(o_k, o_p)
     return main_abs
 
@@ -571,10 +586,24 @@ SERVE_KERNELS = {"hla2": ("hla2_chunk_fwd", "hla2_step"),
                  "ahla": ("ahla_chunk_fwd", "ahla_step")}
 
 
+def serve_requests(cfg, n_req, lens, gen):
+    """The serve phases' requests: ``n_req`` prompts of seeded random
+    lengths in ``lens`` and random tokens, ``gen`` tokens each."""
+    import numpy as np
+
+    from repro_torch.serving.engine import GenRequest
+
+    rng = np.random.RandomState(0)
+    return [GenRequest(rid=i, prompt=rng.randint(2, cfg.vocab, size=L),
+                       max_new=gen)
+            for i, L in enumerate(rng.randint(lens[0], lens[1] + 1, n_req))]
+
+
 def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
           block=8):
     """Serve ``n_req`` greedy requests with ``cfg.mixer``; returns the launch
-    counts of that run and its summary numbers."""
+    counts of that run and its summary numbers (and streams).  On the CPU
+    (a rehearsal) nothing is counted or timed on a device."""
     import numpy as np
     import torch
 
@@ -584,13 +613,11 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
 
     engine = Engine(cfg, params, slots=slots, max_len=lens[1] + gen + 8,
                     block=block, seed=0, device=device)
-    rng = np.random.RandomState(0)
-    reqs = [GenRequest(rid=i, prompt=rng.randint(2, cfg.vocab, size=L),
-                       max_new=gen)
-            for i, L in enumerate(rng.randint(lens[0], lens[1] + 1, n_req))]
+    reqs = serve_requests(cfg, n_req, lens, gen)
     engine.run([GenRequest(rid=-1, prompt=reqs[0].prompt, max_new=block)])
     engine.reset_stats()
-    if device.type == "cuda":
+    cuda = device.type == "cuda"
+    if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     # CUDA events around each chunk-kernel call of the run: the stream is
@@ -608,14 +635,16 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
         marks.append((start, end))
         return out
 
-    setattr(ops, chunk_name, timed)
+    if cuda:
+        setattr(ops, chunk_name, timed)
     LAUNCHES.clear()  # count the main path only
     t0 = time.perf_counter()
     try:
         results = engine.run(reqs)
     finally:
         setattr(ops, chunk_name, kernel)
-    torch.cuda.synchronize(device)
+    if cuda:
+        torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     bad = [(r.rid, r.status, len(r.tokens), r.error) for r in results
@@ -627,9 +656,9 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
     # per decode step, and no other kernel
     want = {chunk_name: cfg.n_layers * n_req,
             step_name: cfg.n_layers * st["decode_steps"]}
-    if launches != want:
+    if cuda and launches != want:
         raise AssertionError(f"kernel launches {launches}, want {want}")
-    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
     chunk_ms = [s.elapsed_time(e) for s, e in marks]
     per_adm = [sum(chunk_ms[i:i + cfg.n_layers])
                for i in range(0, len(chunk_ms), cfg.n_layers)]
@@ -646,7 +675,8 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
         chunk_share_of_prefill=sum(per_adm) / (1e3 * st["prefill_s"]),
         decode_tok_s=(st["generated_tokens"] - n_req) / st["decode_s"],
         prefill_tok_s=st["prompt_tokens"] / st["prefill_s"],
-        decode_steps=st["decode_steps"], peak_gib=peak)
+        decode_steps=st["decode_steps"], peak_gib=peak,
+        streams=[r.tokens for r in results])
     log(f"served {n_req} requests with {cfg.mixer} (prompts "
         f"{lens[0]}-{lens[1]}, gen {gen}, {slots} slots, block {block}, "
         f"{cfg.dtype}) in {wall:.2f}s: TTFT "
@@ -662,7 +692,257 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
 
 
 # --------------------------------------------------------------------------
-# phase 5: training
+# phase 5: speculative serving
+# --------------------------------------------------------------------------
+
+
+SPEC_K = 4  # draft tokens per round, the reference's default
+
+
+def _wrong_drafter():
+    """A drafter that always proposes token 1: nearly every round rejects
+    and rolls back (the reference tests' ``_WrongDrafter``)."""
+    import numpy as np
+
+    from repro_torch.serving.spec import Drafter
+
+    class WrongDrafter(Drafter):
+        def admit(self, slot, tokens):
+            pass
+
+        def commit(self, slot, tokens):
+            pass
+
+        def propose(self, slot_ids, k):
+            return np.ones((len(slot_ids), k), np.int64), None
+
+    return WrongDrafter()
+
+
+#: the serving kernels' plain versions, (module under repro_torch.kernels,
+#: function)
+SERVE_PLAINS = (("hla2_chunk", "hla2_chunk_fwd_plain"),
+                ("ahla_chunk", "ahla_chunk_fwd_plain"),
+                ("decode_step", "hla2_step_plain"),
+                ("decode_step", "ahla_step_plain"))
+
+
+def _count_plain_calls(plains):
+    """Wrap each of ``plains`` (module under repro_torch.kernels, function)
+    to count its calls; returns ``(calls, restore)``."""
+    import importlib
+
+    calls = []
+    originals = []
+    for mod_name, fn_name in plains:
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        fn = getattr(mod, fn_name)
+        originals.append((mod, fn_name, fn))
+
+        def counted(*a, _fn=fn, _name=fn_name, **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+
+        setattr(mod, fn_name, counted)
+
+    def restore():
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+    return calls, restore
+
+
+def serve_spec(params, cfg, device, drafter, n_req=8, slots=4,
+               lens=(256, 640), gen=64, block=8):
+    """Serve the serve phase's requests speculatively (``drafter``: "ngram",
+    "lm" or an instance; k = ``SPEC_K``).  On the card, the run's kernel
+    launches must equal the counts its stats imply, with no plain-version
+    call and no breaker trip.  Returns its summary numbers and streams."""
+    import collections
+
+    import torch
+
+    from repro_torch.kernels.ops import LAUNCHES
+    from repro_torch.serving.engine import Engine, GenRequest
+    from repro_torch.serving.spec import HLADrafter, SpecConfig
+
+    cuda = device.type == "cuda"
+    # zero-acceptance rounds are common with random weights and would trip
+    # the breaker into plain blocks: here it trips on a drafter exception
+    # only, so any trip fails the phase
+    spec = SpecConfig(k=SPEC_K, drafter=drafter, breaker_zero_rounds=2**31)
+    engine = Engine(cfg, params, slots=slots, max_len=lens[1] + gen + 8,
+                    block=block, seed=0, device=device, spec=spec)
+    reqs = serve_requests(cfg, n_req, lens, gen)
+    engine.run([GenRequest(rid=-1, prompt=reqs[0].prompt, max_new=block)])
+    engine.reset_stats()
+    engine.reset_breaker()
+    hla_drafter = isinstance(engine.drafter, HLADrafter)
+    if hla_drafter:
+        engine.drafter.stats.update(admissions=0, steps=0)
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    plain_calls, restore = _count_plain_calls(SERVE_PLAINS)
+    LAUNCHES.clear()  # count the main path only
+    t0 = time.perf_counter()
+    try:
+        results = engine.run(reqs)
+    finally:
+        restore()
+    if cuda:
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    st = engine.stats
+    bad = [(r.rid, r.status, len(r.tokens), r.error) for r in results
+           if r.status != "ok" or len(r.tokens) != gen]
+    if bad:
+        raise AssertionError(f"requests not served: {bad}")
+    if st["breaker_trips"] or st["decode_steps"]:
+        raise AssertionError(f"breaker tripped ({engine.breaker['reason']}): "
+                             f"{st['decode_steps']} plain decode steps")
+    # one target chunk launch per layer per admission and per round, one
+    # step launch per layer per replay step; the draft model's likewise
+    want = collections.Counter()
+    chunk_name, step_name = SERVE_KERNELS[cfg.mixer]
+    want[chunk_name] += cfg.n_layers * (n_req + st["spec_rounds"])
+    want[step_name] += cfg.n_layers * st["spec_replay_steps"]
+    name = "ngram" if not hla_drafter else "lm"
+    if hla_drafter:
+        dcfg, dst = engine.drafter.cfg, engine.drafter.stats
+        d_chunk, d_step = SERVE_KERNELS[dcfg.mixer]
+        want[d_chunk] += dcfg.n_layers * dst["admissions"]
+        want[d_step] += dcfg.n_layers * dst["steps"]
+        name += (f" (draft {dcfg.name} reduced, {dcfg.n_layers} layers, "
+                 f"d_model {dcfg.d_model}, {dst['admissions']} admissions, "
+                 f"{dst['steps']} steps)")
+    elif not isinstance(drafter, str):
+        name = type(drafter).__name__
+    want = {k: v for k, v in want.items() if v}
+    if cuda and (launches != want or plain_calls):
+        raise AssertionError(f"kernel launches {launches}, want {want}; "
+                             f"plain calls {collections.Counter(plain_calls)}")
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
+    rounds = st["spec_rounds"]
+    out = dict(
+        wall_s=wall, rounds=rounds, replays=st["spec_replays"],
+        replay_steps=st["spec_replay_steps"],
+        acceptance=st["spec_accepted"] / max(st["spec_drafted"], 1),
+        decode_tok_s=(st["generated_tokens"] - n_req) / st["decode_s"],
+        ms_per_round=1e3 * st["decode_s"] / max(rounds, 1),
+        tok_per_round=(st["generated_tokens"] - n_req) / max(rounds, 1),
+        peak_gib=peak, launches=launches,
+        streams=[r.tokens for r in results])
+    log(f"speculative serve, {cfg.mixer}, {cfg.dtype}, drafter {name}, k "
+        f"{SPEC_K}: {n_req} requests in {wall:.2f}s | decode "
+        f"{out['decode_tok_s']:.1f} tok/s | {rounds} rounds, "
+        f"{out['ms_per_round']:.2f} ms/round, {out['tok_per_round']:.2f} "
+        f"committed tok/round | acceptance {out['acceptance']:.3f} "
+        f"({st['spec_accepted']}/{st['spec_drafted']}) | replay rounds "
+        f"{st['spec_replays']} ({st['spec_replays'] / max(rounds, 1):.1%}), "
+        f"{st['spec_replay_steps']} replay steps | breaker trips 0 | peak "
+        f"memory {peak:.2f} GiB | launches {launches}")
+    return out
+
+
+def _parted_at(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def route_logits(params, cfg, prompt, toks):
+    """The logits after ``prompt + toks`` two ways: a prefill of the prompt
+    then one decode step per token (plain decode's route: step kernel), and
+    one prefill of it all (the verify route: chunk kernel).  One request."""
+    import torch
+
+    from repro_torch.models import lm
+
+    dev = params["embed"]["embedding"].device
+    p = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    t = torch.as_tensor(toks, dtype=torch.long, device=dev)[None]
+    step, st = lm.lm_prefill(params, p, cfg)
+    for j in range(t.shape[1]):
+        logits, _ = lm.lm_apply(params, t[:, j:j + 1], cfg, states=st,
+                                mode="decode")
+        step = logits[:, -1]
+    chunk, _ = lm.lm_prefill(params, torch.cat([p, t], 1), cfg)
+    return step[0].float(), chunk[0].float()
+
+
+def spec_phase(params, cfg, device, plain_bf16, n_req=8, lens=(256, 640),
+               gen=64):
+    """Speculative serving of full-width hla-1b with ``cfg.mixer``.
+
+    (a) fp32 activations: speculative greedy (n-gram, then an always-wrong
+    drafter) equals plain greedy token for token; (b) bf16, as phase 4,
+    with the n-gram and the draft-LM drafters: the numbers, and which
+    streams part from plain bf16 greedy (``plain_bf16``, phase 4's streams)
+    and where.  A stream may part only where plain greedy's top-2 logit gap
+    is within the bound set by the bf16 logit error between the verify
+    route and the decode route, measured here: 4 x that error, 2 x for a
+    difference of two logits and 2 x more for a stream whose state mixed
+    both routes.  Returns the n-gram bf16 run's numbers."""
+    from repro_torch.models import lm
+
+    cfg32 = cfg.replace(dtype="float32")
+    kw = dict(n_req=n_req, lens=lens, gen=gen)
+    _, plain32 = serve(params, cfg32, device, **kw)
+    for drafter in ("ngram", _wrong_drafter()):
+        out = serve_spec(params, cfg32, device, drafter, **kw)
+        parted = [(i, _parted_at(a, b)) for i, (a, b) in
+                  enumerate(zip(plain32["streams"], out["streams"]))
+                  if a != b]
+        log(f"fp32 {cfg.mixer} speculative greedy vs plain greedy: "
+            f"{n_req - len(parted)} of {n_req} streams equal"
+            + (f"; parted (request, position): {parted}" if parted else ""))
+        if parted:
+            raise AssertionError("fp32 speculative greedy parted from plain "
+                                 "greedy")
+        if not isinstance(drafter, str) and not out["replays"]:
+            raise AssertionError("the wrong drafter never rolled back")
+
+    reqs = serve_requests(cfg, n_req, lens, gen)
+    runs = {}
+    for drafter in ("ngram", "lm"):
+        out = serve_spec(params, cfg, device, drafter, **kw)
+        runs[drafter] = out
+        # the engine's bf16 weights, cast anew: a copy kept across the runs
+        # would count in their peak memory
+        p_bf = lm.cast_params(params, cfg)
+        parted = {i: _parted_at(a, b) for i, (a, b) in
+                  enumerate(zip(plain_bf16, out["streams"])) if a != b}
+        # the route error where streams part, and at mid-stream of the
+        # first two requests for a measure when none parts
+        probes = dict(parted)
+        for i in (0, 1):
+            probes.setdefault(i, gen // 2)
+        errs, gaps = {}, {}
+        for i, pos in probes.items():
+            step, chunk = route_logits(p_bf, cfg, reqs[i].prompt,
+                                       plain_bf16[i][:pos])
+            errs[i] = float((step - chunk).abs().max())
+            top2 = step.topk(2).values
+            gaps[i] = float(top2[0] - top2[1])
+        del p_bf
+        bound = 4 * max(errs.values())
+        log(f"bf16 {cfg.mixer} speculative ({drafter}) vs plain greedy: "
+            f"{n_req - len(parted)} of {n_req} streams equal; bf16 logit "
+            f"error, verify route vs decode route: "
+            + ", ".join(f"request {i} at {p}: {errs[i]:.4f}"
+                        for i, p in probes.items())
+            + f"; bound on the top-2 gap where a stream parts {bound:.4f}"
+            + "".join(f"; request {i} parts at {p}, plain greedy top-2 gap "
+                      f"{gaps[i]:.4f}" for i, p in parted.items()))
+        wide = [i for i in parted if gaps[i] > bound]
+        if wide:
+            raise AssertionError(f"streams {wide} parted where plain greedy's "
+                                 "top-2 gap exceeds the bf16 bound")
+    return runs
+
+
+# --------------------------------------------------------------------------
+# phase 6: training
 # --------------------------------------------------------------------------
 
 
@@ -676,8 +956,6 @@ def train(device, mixer="hla2", steps=5, batch=2, seq=2048):
     """AdamW steps of full-width hla-1b with ``mixer`` (24 layers, bf16
     activations, fp32 parameters and moments) on one repeated synthetic
     batch.  Returns the launch counts of the run and its summary numbers."""
-    import importlib
-
     import numpy as np
     import torch
 
@@ -691,7 +969,6 @@ def train(device, mixer="hla2", steps=5, batch=2, seq=2048):
 
     cfg = get_config("hla-1b", mixer=mixer)
     mod_name, fwd, bwd = TRAIN_KERNELS[mixer]
-    mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
     params = init_params(lm.lm_specs(cfg), 0, device)
     # with one warmup step, the default lr 3e-4 moves every weight by ~lr
     # at once: on this random-weight model the loss rose 11.0 -> 18.2 and
@@ -703,16 +980,8 @@ def train(device, mixer="hla2", steps=5, batch=2, seq=2048):
     host = SyntheticStream(DataConfig(cfg.vocab, seq, batch, seed=0)).batch(0)
     data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     # count calls of the plain versions too: the run must make none
-    plain_calls = []
-    originals = {}
-    for name in (f"{fwd}_plain", f"{bwd}_plain"):
-        fn = originals[name] = getattr(mod, name)
-
-        def counted(*a, _fn=fn, _name=name, **kw):
-            plain_calls.append(_name)
-            return _fn(*a, **kw)
-
-        setattr(mod, name, counted)
+    plain_calls, restore = _count_plain_calls(
+        [(mod_name, f"{fwd}_plain"), (mod_name, f"{bwd}_plain")])
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     LAUNCHES.clear()  # count the main path only
@@ -725,8 +994,7 @@ def train(device, mixer="hla2", steps=5, batch=2, seq=2048):
             step_s.append(time.perf_counter() - t0)
             norms.append(float(m["grad_norm"]))
     finally:
-        for name, fn in originals.items():
-            setattr(mod, name, fn)
+        restore()
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     p50 = float(np.percentile(step_s, 50))
@@ -751,7 +1019,7 @@ def train(device, mixer="hla2", steps=5, batch=2, seq=2048):
 
 
 # --------------------------------------------------------------------------
-# phase 6: timing
+# phase 7: timing
 # --------------------------------------------------------------------------
 
 
@@ -1127,6 +1395,52 @@ def time_ahla_kernels(device, chunk_abs, step_abs, launches, rows_chunk=16,
     return [chunk, step]
 
 
+def time_verify(device, mixer, verify_abs, launches, rows=64, n=SPEC_K + 1,
+                d=128):
+    """``mixer``'s chunk kernel at the verify shape, one (k+1)-token chunk
+    resumed from a carry (bf16 inputs, gamma), and its plain version.  The
+    carries rotate over copies twice the 50 MB L2, as the pool's 24 layers
+    do in a verify pass, so every launch finds its carry cold.  Its bound
+    counts the carry read and the new carry written (fp32), q, k, v in and
+    o out (bf16) and gamma.  ``launches``: the kernel's verify launches in
+    phase 5's bf16 n-gram run (its admissions run the serve shape)."""
+    import importlib
+
+    import torch
+
+    mod_name, fwd_name, _ = TRAIN_KERNELS[mixer]
+    mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+    fwd, fwd_plain = getattr(mod, fwd_name), getattr(mod, f"{fwd_name}_plain")
+    gen = torch.Generator(device=device).manual_seed(15)
+    q, k, v, g = _inputs(gen, rows, n, d, d, torch.bfloat16, device)
+    _, carry = fwd_plain(*_inputs(gen, rows, 64, d, d, torch.float32,
+                                  device))
+    state_bytes = 4 * sum(x.numel() for x in carry)
+    n_st = max(8, -(-100_000_000 // state_bytes))
+    carries = [[x.clone() for x in carry] for _ in range(n_st)]
+    ms = median_ms(lambda i: fwd(q, k, v, g,
+                                 initial_state=carries[i % n_st]), 20)
+    plain = median_ms(lambda i: fwd_plain(q, k, v, g,
+                                          initial_state=carries[i % n_st]), 5)
+    nbytes = 2 * state_bytes + 2 * rows * n * 4 * d + 4 * rows
+    fmas = {"hla2": chunk_fmas, "ahla": ahla_chunk_fmas}[mixer](
+        n, d, d, has_init=True)
+    bound, by = _bound(nbytes, fmas, rows)
+    src, line = {"hla2": (CHUNK_SRC, "src/repro/kernels/hla2_chunk.py:176"),
+                 "ahla": (AHLA_CHUNK_SRC,
+                          "src/repro/kernels/ahla_chunk.py:100")}[mixer]
+    log(f"{fwd_name} at the verify shape, rows {rows} n {n} d {d} with a "
+        f"carry, bf16 in, {n_st} carries rotated: {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB "
+        f"at 3.35 TB/s, the carry {state_bytes / 1e6:.2f} MB read and "
+        f"written; {_ops_text(fmas, rows)}; {nbytes / ms / 1e9:.2f} TB/s "
+        "achieved)")
+    return dict(name=f"{fwd_name}[verify]", route="cuda", source=src,
+                replaces=line, launches=launches,
+                max_abs_err=verify_abs, ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+
 def main() -> int:
     import torch
 
@@ -1179,6 +1493,9 @@ def main() -> int:
                                  "a block may use")
 
     chunk_abs = check_chunk(device)
+    # the verify shape: 4 slots x 16 heads, k+1 tokens, resumed from a carry
+    verify_abs = check_chunk(device, rows=64, ns=(SPEC_K + 1, 1),
+                             main_init=True)
     step_abs = check_step(device)
     check_chunk(device, rows=8, d=16, ns=(130, 7))  # reduced hla-1b heads
     check_step(device, rows=8, d=16, n_prior=70)
@@ -1189,6 +1506,8 @@ def main() -> int:
     # normalize and lam across four column tiles, ragged
     check_chunk_bwd(device, rows=4, d=128, ns=(300,), small=True)
     ahla_chunk_abs = check_ahla_chunk(device)
+    ahla_verify_abs = check_ahla_chunk(device, rows=64, ns=(SPEC_K + 1, 1),
+                                       main_init=True)
     ahla_step_abs = check_ahla_step(device)
     check_ahla_chunk(device, rows=8, d=16, ns=(130, 7))
     check_ahla_step(device, rows=8, d=16, n_prior=70)
@@ -1210,16 +1529,22 @@ def main() -> int:
     check_identity(params, cfg.replace(dtype="float32"))
     check_identity(params, ahla_cfg.replace(dtype="float32"))
 
-    launches, _ = serve(params, cfg, device)
-    ahla_launches, _ = serve(params, ahla_cfg, device)
+    launches, plain = serve(params, cfg, device)
+    ahla_launches, ahla_plain = serve(params, ahla_cfg, device)
+    spec = spec_phase(params, cfg, device, plain["streams"])
+    ahla_spec = spec_phase(params, ahla_cfg, device, ahla_plain["streams"])
     del params
     train_launches, _ = train(device)
     ahla_train_launches, _ = train(device, mixer="ahla")
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
+    kernels.append(time_verify(device, "hla2", verify_abs,
+                               cfg.n_layers * spec["ngram"]["rounds"]))
     kernels += time_train_kernels(device, "hla2", bwd_abs, ckpt_abs,
                                   train_launches)
     kernels += time_ahla_kernels(device, ahla_chunk_abs, ahla_step_abs,
                                  ahla_launches)
+    kernels.append(time_verify(device, "ahla", ahla_verify_abs,
+                               cfg.n_layers * ahla_spec["ngram"]["rounds"]))
     kernels += time_train_kernels(device, "ahla", ahla_bwd_abs, ahla_ckpt_abs,
                                   ahla_train_launches)
     print(smi)

@@ -85,13 +85,14 @@ def hla2_prefill(q, k, v, gamma=None, *, state: HLA2State | None = None,
                  normalize: bool = False, eps: float = 1e-6,
                  lam: float = 0.0):
     """Chunk-parallel HLA2 prefill over ``(B, H, n, d)``.  Returns
-    ``(o, HLA2State)`` with fp32 state leaves ``(B, H, ...)``; ``state``
-    (if given) is the carry to resume from and is not modified."""
+    ``(o, HLA2State)`` with fp32 state leaves ``(B, H, ...)`` (fp64 for fp64
+    inputs, CPU only); ``state`` (if given) is the carry to resume from and
+    is not modified."""
     B, H, n, _ = q.shape
-    init = None if state is None else tuple(
-        _rows(x.to(torch.float32)) for x in state)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    init = None if state is None else tuple(_rows(x.to(ct)) for x in state)
     o, st = hla2_chunk_fwd(
-        _rows(q), _rows(k), _rows(v), _rows_gamma(gamma, B, H, q.device),
+        _rows(q), _rows(k), _rows(v), _rows_gamma(gamma, B, H, q.device, ct),
         initial_state=init, normalize=normalize, eps=eps, lam=lam,
     )
     return (o.reshape(B, H, n, -1),
@@ -127,21 +128,22 @@ def ahla_attention(q, k, v, gamma=None, *, normalize: bool = False,
 def ahla_prefill(q, k, v, gamma=None, *, state: AHLAState | None = None,
                  normalize: bool = False, eps: float = 1e-6):
     """Chunk-parallel AHLA prefill over ``(B, H, n, d)``.  Returns
-    ``(o, AHLAState)`` with fp32 state leaves ``(B, H, ...)``; ``state`` (if
-    given) is the carry to resume from and is not modified.  One kernel
+    ``(o, AHLAState)`` with fp32 state leaves ``(B, H, ...)`` (fp64 for fp64
+    inputs, CPU only); ``state`` (if given) is the carry to resume from and
+    is not modified.  One kernel
     launch computes ``o`` and ``(P, m, E, n)``; the undecayed cross moment
     ``R = R0 + K^T Q`` is a plain product outside it, as in the
     reference."""
     B, H, n, _ = q.shape
+    ct = torch.promote_types(q.dtype, torch.float32)
     init = None if state is None else tuple(
-        _rows(x.to(torch.float32)) for x in (state.P, state.m, state.E,
-                                             state.n))
+        _rows(x.to(ct)) for x in (state.P, state.m, state.E, state.n))
     o, (P, m, E, nn) = ahla_chunk_fwd(
-        _rows(q), _rows(k), _rows(v), _rows_gamma(gamma, B, H, q.device),
+        _rows(q), _rows(k), _rows(v), _rows_gamma(gamma, B, H, q.device, ct),
         initial_state=init, normalize=normalize, eps=eps)
-    R = k.to(torch.float32).mT @ q.to(torch.float32)
+    R = k.to(ct).mT @ q.to(ct)
     if state is not None:
-        R = R + state.R.to(torch.float32)
+        R = R + state.R.to(ct)
 
     def unm(x):
         return x.reshape((B, H) + x.shape[1:])

@@ -12,7 +12,12 @@ and on the CPU (plain versions of the kernels) with ``--device cpu``:
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 ``--mixer ahla`` swaps the arch's sequence op for AHLA (same weights
-layout, its own kernels).
+layout, its own kernels).  ``--spec ngram`` (prompt lookup) or ``--spec lm``
+(a draft LM: ``--draft-arch``, reduced, random weights, the target's
+vocabulary) decodes speculatively, ``--spec-k`` draft tokens a round:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --spec ngram
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..models import lm
 from ..models.param import init_params
 from ..serving.engine import Engine, GenRequest
 from ..serving.sampling import SamplingConfig
+from ..serving.spec import SpecConfig
 
 
 def main(argv=None):
@@ -48,6 +54,13 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=40)
     ap.add_argument("--top-p", type=float, default=0.9)
+    ap.add_argument("--spec", default="off", choices=["off", "ngram", "lm"],
+                    help="speculative decoding drafter (off = plain blocks)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens per speculative round")
+    ap.add_argument("--draft-arch", default="hla-1b",
+                    help="configs entry for the --spec lm draft model "
+                         "(loaded reduced)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -58,13 +71,15 @@ def main(argv=None):
         else "cpu"
     print(f"[serve] {cfg.name} on {name}")
     params = init_params(lm.lm_specs(cfg), args.seed, device)
+    spec = None if args.spec == "off" else SpecConfig(
+        k=args.spec_k, drafter=args.spec, draft_arch=args.draft_arch)
     engine = Engine(
         cfg, params, slots=args.slots,
         max_len=args.prompt_len + args.gen_len + 8,
         sampling=SamplingConfig(method=args.sampling,
                                 temperature=args.temperature,
                                 top_k=args.top_k, top_p=args.top_p),
-        block=args.block, seed=args.seed, device=device,
+        block=args.block, seed=args.seed, device=device, spec=spec,
     )
     del params  # the engine keeps its own compute-dtype copy
     rng = np.random.RandomState(args.seed)
@@ -79,6 +94,7 @@ def main(argv=None):
     engine.run([GenRequest(rid=-1, prompt=requests[0].prompt,
                            max_new=args.block)])
     engine.reset_stats()
+    engine.reset_breaker()  # warmup zero-acceptance must not leak
     t0 = time.perf_counter()
     results = engine.run(requests)
     if device.type == "cuda":
@@ -99,11 +115,19 @@ def main(argv=None):
         f"prefill {st['prompt_tokens'] / max(st['prefill_s'], 1e-9):.1f} "
         "tok/s"
     )
+    if spec is not None:
+        acc = st["spec_accepted"] / max(st["spec_drafted"], 1)
+        print(
+            f"[serve] spec: {st['spec_rounds']} rounds, acceptance "
+            f"{acc:.2f}, {st['spec_replays']} rollbacks, "
+            f"{decode_toks / max(st['spec_rounds'], 1):.2f} committed "
+            "tok/round")
     statuses = collections.Counter(r.status for r in results)
     status_str = " ".join(
         f"{k}={statuses[k]}" for k in ("ok", "error") if statuses[k])
     print(f"[serve] statuses: {status_str or 'ok=0'} | "
-          f"quarantined={st['quarantined']}")
+          f"quarantined={st['quarantined']} "
+          f"breaker_trips={st['breaker_trips']}")
     return results
 
 

@@ -134,6 +134,22 @@ def lm_prefill(params, tokens, cfg, *, states=None):
     return _unembed(params, x[:, -1]), states
 
 
+def lm_score_block(params, tokens, cfg, *, states):
+    """Score a short block against streaming states: the target side of
+    speculative verification (``serving/spec/verify.py``).
+
+    One ``mode="prefill"`` pass (per layer ONE chunkwise kernel launch with
+    ``states`` as its carry) over ``tokens (B, k+1) = [last committed,
+    draft_1..draft_k]``.  Returns ``(logits (B, k+1, vocab), new_states)``:
+    ``logits[:, j]`` is the next-token distribution after ``tokens[:,
+    :j+1]``, and ``new_states`` (new tensors) have consumed the whole block.
+    ``states`` is only read: the chunk kernels take their carry read-only.
+    Takes no ``positions``, unlike the reference: the port's ops carry no
+    positional encoding (hla-1b has none), so ``lm_apply`` has none either.
+    """
+    return lm_apply(params, tokens, cfg, states=states, mode="prefill")
+
+
 def lm_loss(params, tokens, labels, cfg, *, denom=None):
     """Mean next-token cross-entropy in fp32 over ``mode="train"`` logits;
     labels < 0 are ignored.  ``denom`` overrides the normaliser (default:

@@ -141,6 +141,7 @@ def _register(name, core_fwd, core_step, core_init):
     seq_op.register_op(seq_op.SequenceOp(
         name=name, specs=mixer_specs, forward=_sublayer_forward(core_fwd),
         step=_sublayer_step(core_step), init_state=init_state,
+        streaming=True, spec_decodable=True,
     ))
 
 

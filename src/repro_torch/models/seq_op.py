@@ -5,7 +5,10 @@ Minimal twin of ``repro/models/seq_op.py``: a record carries the sublayer's
 one-token ``step`` (decode) and ``init_state``; ``lm.py`` and the serving
 engine program against the record only, and a layer keeps the record's
 parameters under ``"mixer"``.  The port registers ``hla2`` and ``ahla``
-(``models/mixer.py``).
+(``models/mixer.py``).  Of the reference's capability flags it keeps the two
+the serving engine reads: ``streaming`` (a constant-size per-slot decode
+state, so slots batch continuously) and ``spec_decodable`` (that state can
+be snapshot and rolled back, so speculative decoding may verify over it).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ class SequenceOp:
     forward: Callable[..., Any]
     step: Callable[..., Any]
     init_state: Callable[..., Any]
+    streaming: bool = False
+    spec_decodable: bool = False
 
 
 _REGISTRY: Dict[str, SequenceOp] = {}

@@ -5,6 +5,11 @@ a JAX key.  Draws use the Gumbel-max trick (argmax of the warped logits
 plus Gumbel noise), which stays on the device and never syncs.  The two
 packages draw different numbers from the same seed: only greedy decoding
 matches token for token.
+
+``probs`` is the warped next-token law as a probability vector: the p and
+q of speculative sampling (``serving/spec/verify.py``), whose accept and
+residual rules preserve the output law only when both are the very law
+``sample`` draws from.
 """
 
 from __future__ import annotations
@@ -44,6 +49,25 @@ def warped_logits(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
     elif cfg.method not in ("temperature", "greedy"):
         raise ValueError(f"unknown sampling method {cfg.method!r}")
     return lg
+
+
+def probs(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
+    """The warped next-token law over ``(..., vocab)`` logits, fp32: for
+    greedy a one-hot at the argmax, otherwise the softmax of
+    ``warped_logits`` -- exactly the law ``sample`` draws from."""
+    if cfg.method == "greedy":
+        top = logits.argmax(-1)
+        return torch.nn.functional.one_hot(top, logits.shape[-1]).float()
+    return torch.softmax(warped_logits(logits, cfg), dim=-1)
+
+
+def draw(p: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One token from each row of probabilities ``p (..., vocab)`` ->
+    ``(...,)`` int64, by Gumbel-max over ``log p`` (a zero-probability
+    token is never drawn)."""
+    u = torch.rand(p.shape, generator=generator, device=p.device)
+    u = u.clamp_(min=torch.finfo(u.dtype).tiny)
+    return (torch.log(p) - torch.log(-torch.log(u))).argmax(-1)
 
 
 def sample(logits: torch.Tensor, generator: torch.Generator,

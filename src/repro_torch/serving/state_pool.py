@@ -2,7 +2,9 @@
 
 The pooled states are the model's state tuple with every leaf
 ``(layers, slots, ...)``; the slot axis is axis 1 of every leaf.  The decode
-kernel updates these tensors in place, so ``read_slot`` returns a copy.
+kernel updates these tensors in place, so ``read_slot`` and
+``snapshot_slot`` return copies: a reference to the pool would change under
+the next decode step.
 """
 
 from __future__ import annotations
@@ -20,7 +22,12 @@ class StatePool:
         if slots < 1:
             raise ValueError("need at least one slot")
         self.slots = slots
+        self._template_fn = template_fn
         self.states = template_fn(slots)
+
+    def empty_slot_state(self):
+        """A fresh single-slot state (what an admitted request starts from)."""
+        return self._template_fn(1)
 
     def write_slot(self, slot: int, state) -> None:
         """Copy a single-slot state (slot axis of extent 1) into ``slot``;
@@ -38,11 +45,26 @@ class StatePool:
         for x in self.states:
             x[:, slot].zero_()
 
-    def finite_mask(self) -> torch.Tensor:
+    def finite_mask(self, states=None) -> torch.Tensor:
         """``(slots,)`` bool on the pool's device: True where every state
-        element of that slot is finite.  No host sync."""
-        ok = torch.ones(self.slots, dtype=torch.bool,
-                        device=self.states[0].device)
-        for x in self.states:
+        element of that slot is finite, in the pool or in ``states``, a
+        state tuple of the pool's layout.  No host sync."""
+        src = self.states if states is None else states
+        ok = torch.ones(self.slots, dtype=torch.bool, device=src[0].device)
+        for x in src:
             ok &= x.isfinite().flatten(2).all(-1).all(0)
         return ok
+
+    # -- snapshot / rollback (speculative decoding) -------------------------
+
+    def snapshot_slot(self, slot: int):
+        """An O(state) copy of ``slot``'s decode state, a single-slot tuple.
+        It stays as it was through later in-place decode steps on the pool.
+        (The reference's ``host=True``, a snapshot in host memory for the
+        prefix cache, is not ported: nothing here keeps one yet.)"""
+        return self.read_slot(slot)
+
+    def restore_slot(self, slot: int, snapshot) -> None:
+        """Roll ``slot`` back to ``snapshot`` (from ``snapshot_slot``): one
+        copy per leaf, other slots untouched."""
+        self.write_slot(slot, snapshot)
