@@ -27,7 +27,9 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
 4. serve 8 hla-1b requests through the port's ``Engine`` (bf16, 4 slots),
    once with the HLA2 mixer and once with AHLA (``mixer="ahla"``), count
    the kernel launches of each run and time the chunk kernel's launches in
-   it;
+   it (4b: then one ``torch.profiler`` window over 3 plain HLA2 decode
+   blocks of that engine's shape says where a decode step's host time
+   goes);
 5. serve the same requests speculatively (``Engine(spec=...)``, k = 4),
    with either mixer on the same weights: in fp32, speculative greedy with
    the n-gram drafter and with an always-wrong drafter (every round rolls
@@ -38,6 +40,20 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    bound the phase measures; every run serves all requests ``ok``, trips
    no breaker, and launches exactly the kernels its stats imply (target
    and draft model), no plain version;
+8. (runs after phase 5) the serving front-end, full hla-1b, either mixer:
+   (a) fp32, the requests of a shared 384-token prefix with a prefix cache
+   (granularity 128) equal the same engine's streams without one, hits
+   resume at 384 and some advance and insert at 512, one injected
+   ``cache.corrupt`` is dropped; (b) bf16 through ``AsyncServer``, 16
+   requests (2 tenants, 2 priorities, 4 slots) with a 3-entry cache (LRU
+   evicts), one expiring queued, one cancelled, one ``engine.nan_state``:
+   exactly those statuses, the quarantined slot's neighbours keep their
+   streams, the metrics and events pass ``repro_torch.obs.validate``;
+   HLA2 also with the n-gram drafter and one ``drafter.propose``; then the
+   time split of a hit admission (crc32, restore, suffix prefill,
+   snapshot).  Every run launches exactly 24 chunk kernels per admission,
+   carry advance and spec round and 24 step kernels per decode or replay
+   step, and no plain version;
 6. train hla-1b at full width and depth for 5 AdamW steps on one repeated
    2 x 2048 batch, once with either mixer, count the kernel launches of
    each run (24 forward + 24 backward per step of its mixer's kernels, no
@@ -615,7 +631,7 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
                     block=block, seed=0, device=device)
     reqs = serve_requests(cfg, n_req, lens, gen)
     engine.run([GenRequest(rid=-1, prompt=reqs[0].prompt, max_new=block)])
-    engine.reset_stats()
+    engine.obs.reset()
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(device)
@@ -775,7 +791,7 @@ def serve_spec(params, cfg, device, drafter, n_req=8, slots=4,
                     block=block, seed=0, device=device, spec=spec)
     reqs = serve_requests(cfg, n_req, lens, gen)
     engine.run([GenRequest(rid=-1, prompt=reqs[0].prompt, max_new=block)])
-    engine.reset_stats()
+    engine.obs.reset()
     engine.reset_breaker()
     hla_drafter = isinstance(engine.drafter, HLADrafter)
     if hla_drafter:
@@ -939,6 +955,546 @@ def spec_phase(params, cfg, device, plain_bf16, n_req=8, lens=(256, 640),
             raise AssertionError(f"streams {wide} parted where plain greedy's "
                                  "top-2 gap exceeds the bf16 bound")
     return runs
+
+
+# --------------------------------------------------------------------------
+# phase 4b: where a decode step's host time goes (torch.profiler)
+# --------------------------------------------------------------------------
+
+
+def profile_decode(params, cfg, device, slots=4, block=8, blocks=3):
+    """One ``obs.perf.profile_capture`` window (``torch.profiler``, CPU and
+    CUDA activity) over ``blocks`` plain decode blocks of phase 4's engine
+    (bf16, 4 slots, block 8, all slots live), with the forward, the
+    sampling and the step-kernel wrapper each labelled by
+    ``record_function``.  Logs the wall time per decode step (also of one
+    block outside the profiler) beside the host time of each part, the
+    block's sync and copy, the launches and the device's busy time, and
+    writes the profiler table and its Chrome trace under
+    ``build/chip_smoke/``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.obs import Obs, profile_capture
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import Engine
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    engine = Engine(cfg, params, slots=slots, max_len=1024, block=block,
+                    seed=0, device=device, obs=Obs(annotate=True))
+    reqs = serve_requests(cfg, slots, (256, 640), 10 * block * blocks)
+    for s, r in enumerate(reqs):
+        engine.admit(s, r)
+    engine.step_block()  # warm
+    _sync(device)
+    step_name = SERVE_KERNELS[cfg.mixer][1]
+    kernel_fn = {"hla2_step": "hla2_decode_step",
+                 "ahla_step": "ahla_decode_step"}[step_name]
+    patched = [(lm, "lm_apply"), (engine_mod, "sample"), (ops, kernel_fn)]
+    labels = {"lm_apply": "decode.forward", "sample": "decode.sample",
+              kernel_fn: "decode.step_kernel"}
+    originals = [(mod, name, getattr(mod, name)) for mod, name in patched]
+
+    def labelled(fn, label):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return wrapped
+
+    _sync(device)
+    t0 = time.perf_counter()
+    engine.step_block()  # unprofiled, for the profiler's overhead
+    _sync(device)
+    bare = (time.perf_counter() - t0) / block
+    for mod, name, fn in originals:
+        setattr(mod, name, labelled(fn, labels[name]))
+    try:
+        with profile_capture(str(out_dir / "profile"), obs=engine.obs) \
+                as prof:
+            t0 = time.perf_counter()
+            for _ in range(blocks):
+                engine.step_block()
+            _sync(device)
+            wall = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    steps = blocks * block
+    table = prof.key_averages()
+    (out_dir / "profile_table.txt").write_text(
+        table.table(sort_by="self_cpu_time_total", row_limit=40))
+
+    def cpu_ms(*keys):
+        return sum(e.cpu_time_total for e in table if e.key in keys) / 1e3
+
+    def calls(*keys):
+        return sum(e.count for e in table if e.key in keys)
+
+    # device busy: the kernels' own time, the device rows of the table
+    # (the host ops' "self CUDA" column repeats it) less the device-side
+    # copies of the record_function ranges, which span kernels and gaps
+    ranges = set(labels.values()) | {"engine.decode_block"}
+    kernels = [e for e in table if e.device_type == DeviceType.CUDA
+               and e.key not in ranges]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launch_keys = ("cudaLaunchKernel", "cuLaunchKernelEx",
+                   "cudaLaunchKernelExC")
+    aten = sum(e.count for e in table if e.key.startswith("aten::"))
+    parts = {k: cpu_ms(k) / steps for k in (
+        "decode.forward", "decode.step_kernel", "decode.sample")}
+    sync = cpu_ms("cudaStreamSynchronize", "cudaMemcpyAsync",
+                  "cudaDeviceSynchronize")
+    top = sorted(table, key=lambda e: -e.self_cpu_time_total)[:8]
+    log(f"decode profile, {cfg.mixer}, {cfg.dtype}, {slots} slots, "
+        f"{blocks} blocks x {block} steps: {1e3 * bare:.2f} ms a step "
+        f"unprofiled, {1e3 * wall / steps:.2f} ms profiled; host time a "
+        f"step (profiled): forward {parts['decode.forward']:.2f} ms, of it "
+        f"the {cfg.n_layers} step-kernel wrappers "
+        f"{parts['decode.step_kernel']:.2f} ms; sampling "
+        f"{parts['decode.sample']:.2f} ms; the block's sync and copy "
+        f"{sync / blocks:.2f} ms a block; {calls(*launch_keys) / steps:.0f} "
+        f"kernel launches ({cpu_ms(*launch_keys) / steps:.2f} ms) and "
+        f"{aten / steps:.0f} aten ops a step; device busy "
+        f"{device_ms / steps:.2f} ms a step ({device_ms / (1e3 * wall):.1%} "
+        "of the profiled window); top host ops by self time: "
+        + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / steps:.3f} ms "
+                    f"({e.count / steps:.0f}/step)" for e in top))
+    if device_ms <= 0:
+        log("decode profile: torch.profiler recorded no device time")
+
+
+# --------------------------------------------------------------------------
+# phase 8: the serving front-end (runs after phase 5)
+# --------------------------------------------------------------------------
+
+
+FE_PREFIX = 384  # the prompts' shared prefix: three cache chunks
+FE_CHUNK = 128  # cache key granularity
+#: unique tokens after the prefix, per request of the fp32 run: prompt
+#: lengths 400-640, so the chunk-aligned boundary falls on 384 or 512
+FE_SUFFIXES = (16, 200, 64, 256, 130, 90, 240, 33)
+
+
+def frontend_requests(cfg, suffixes, gen, seed=1, **per_rid):
+    """Prompts of the shared ``FE_PREFIX``-token prefix and ``suffixes[i]``
+    unique tokens; ``per_rid[name](i)`` sets a request field."""
+    import numpy as np
+
+    from repro_torch.serving.engine import GenRequest
+
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(2, cfg.vocab, FE_PREFIX)
+    return [GenRequest(
+        rid=i, prompt=np.concatenate([prefix, rng.randint(2, cfg.vocab, n)]),
+        max_new=gen, **{k: f(i) for k, f in per_rid.items()})
+        for i, n in enumerate(suffixes)]
+
+
+def _admitted(engine):
+    """rid -> (prompt length, cached prefix) of every admission."""
+    return {e["rid"]: (e["prompt_len"], e["cached_prefix"])
+            for e in engine.obs.events("request.admitted")}
+
+
+def _want_launches(cfg, engine, admitted):
+    """The chunk and step launches a front-end run must make: 24 chunk
+    launches per admission and per carry advance (an admission whose
+    chunk-aligned boundary lies past its cached prefix) and per spec round,
+    24 step launches per decode step and per replay step."""
+    chunk_name, step_name = SERVE_KERNELS[cfg.mixer]
+    st = engine.stats
+    advances = sum((L - 1) // FE_CHUNK * FE_CHUNK > hit
+                   for L, hit in admitted.values())
+    want = {chunk_name: cfg.n_layers * (len(admitted) + advances
+                                        + st["spec_rounds"]),
+            step_name: cfg.n_layers * (st["decode_steps"]
+                                       + st["spec_replay_steps"])}
+    return {k: v for k, v in want.items() if v}, advances
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_counted(device, fn):
+    """``fn()`` with the launch counts zeroed before and read after, and
+    every plain-version call counted; on the card a plain call fails.
+    Returns ``(fn's result, launches, wall seconds)``.  On the CPU (a
+    rehearsal) the plain versions run and nothing launches."""
+    from repro_torch.kernels.ops import LAUNCHES
+
+    plain_calls, restore = _count_plain_calls(SERVE_PLAINS)
+    _sync(device)
+    LAUNCHES.clear()  # count this path only
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        _sync(device)
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    if device.type == "cuda" and plain_calls:
+        raise AssertionError(f"plain versions called: {plain_calls}")
+    return out, dict(LAUNCHES), wall
+
+
+def _serve_async(engine, reqs):
+    import asyncio
+
+    from repro_torch.serving.server import AsyncServer, collect
+
+    async def main():
+        async with AsyncServer(engine) as srv:
+            return await asyncio.gather(*[collect(srv, r) for r in reqs])
+
+    outs = asyncio.run(main())
+    for (toks, res), r in zip(outs, reqs):
+        if toks != res.tokens:
+            raise AssertionError(f"request {r.rid}: streamed {len(toks)} "
+                                 f"tokens != result {len(res.tokens)}")
+    return [res for _, res in outs]
+
+
+def frontend_exact(params, cfg, device, gen=16):
+    """(a) fp32: the phase's requests with a prefix cache against the
+    same engine's streams without one: every cache hit's stream equal
+    token for token; a cold admission with the cache attached (two
+    prefill calls instead of one) may part only at a near-tie, a cold top-2
+    logit gap within 4x the route error measured there.  Hits resume at
+    384 (and some advance and insert at 512), one injected
+    ``cache.corrupt`` is dropped and its request goes cold; launches
+    exact."""
+    from repro_torch.obs import Obs
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    from repro_torch.serving import Engine, PrefixCache
+
+    cfg32 = cfg.replace(dtype="float32")
+    reqs = frontend_requests(cfg32, FE_SUFFIXES, gen)
+    kw = dict(slots=4, max_len=FE_PREFIX + 256 + gen + 8, block=8, seed=0,
+              device=device)
+    cold_eng = Engine(cfg32, params, **kw)
+    cold_eng.run(frontend_requests(cfg32, FE_SUFFIXES[:1], 2))  # warm
+    cold = cold_eng.run(reqs)
+    del cold_eng
+    cache = PrefixCache(granularity=FE_CHUNK, budget_bytes=1 << 40)
+    engine = Engine(cfg32, params, cache=cache, obs=Obs(),
+                    faults=FaultPlan(FaultSpec("cache.corrupt", at=1)), **kw)
+    got, launches, wall = _run_counted(device, lambda: engine.run(reqs))
+    parted = [r.rid for r, c in zip(got, cold) if r.tokens != c.tokens]
+    bad = [(r.rid, r.status) for r in got if r.status != "ok"]
+    admitted = _admitted(engine)
+    hits = {rid: hit for rid, (L, hit) in admitted.items() if hit}
+    dropped = engine.obs.registry.get("cache_corrupt_dropped_total").total()
+    corrupt_rid = next(rid for rid, (L, hit) in sorted(admitted.items())
+                       if rid and not hit)
+    want, advances = _want_launches(cfg32, engine, admitted)
+    ttft = {k: engine.obs.registry.get(f"serving_ttft_{k}_seconds")
+            for k in ("cold", "hit")}
+    log(f"front-end fp32 {cfg.mixer}: {len(reqs)} requests with a prefix "
+        f"cache (granularity {FE_CHUNK}) vs without, in {wall:.2f}s: "
+        f"{len(reqs) - len(parted)} of {len(reqs)} streams equal; hits "
+        f"(rid: prefix) {hits}; entries at lengths "
+        f"{sorted(n for n, c in cache._lengths.items() if c)}; corrupt "
+        f"dropped {dropped:.0f} (request {corrupt_rid} went cold); "
+        f"{advances} carry advances; TTFT p50 cold "
+        + " vs hit ".join(f"{1e3 * (h.quantile(0.5) or 0.0):.1f} ms "
+                          f"({h.count()})" for h in ttft.values())
+        + f"; launches {launches}")
+    if bad:
+        raise AssertionError(f"fp32 cached run statuses {bad}")
+    if parted:
+        # a cold admission with the cache attached prefills in two calls
+        # (to the aligned boundary, then the rest), a hit resumes from a
+        # snapshot: the same sums as one prefill in another order.  Measure
+        # that route error where a stream parts and the cold route's top-2
+        # gap there
+        errs, gaps = {}, {}
+        for rid in parted:
+            pos = _parted_at(cold[rid].tokens, got[rid].tokens)
+            L, hit = admitted[rid]
+            one, split = split_route_logits(
+                engine.params, cfg32, reqs[rid].prompt,
+                cold[rid].tokens[:pos], hit, (L - 1) // FE_CHUNK * FE_CHUNK)
+            errs[rid] = float((one - split).abs().max())
+            top2 = one.topk(2).values
+            gaps[rid] = (pos, float(top2[0] - top2[1]))
+        log(f"front-end fp32 {cfg.mixer}: streams {parted} part from cold: "
+            + "; ".join(f"request {rid} (cached prefix {admitted[rid][1]}) "
+                        f"at {gaps[rid][0]}, cold top-2 logit gap "
+                        f"{gaps[rid][1]:.3e}, route error {errs[rid]:.3e}"
+                        for rid in parted))
+        wide = [rid for rid in parted
+                if hits.get(rid) or gaps[rid][1] > 4 * errs[rid]]
+        if wide:
+            raise AssertionError(f"fp32 streams {wide} part from cold at a "
+                                 "cache hit or beyond a near-tie")
+    long_hits = [rid for rid in hits if admitted[rid][0] > 512]
+    if FE_PREFIX not in hits.values() or not long_hits or \
+            not cache._lengths[512]:
+        raise AssertionError("no hit at 384, or none advanced to 512 and "
+                             "inserted there")
+    if dropped != 1:
+        raise AssertionError(f"{dropped} corrupt entries dropped, want 1")
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"kernel launches {launches}, want {want}")
+
+
+def split_route_logits(params, cfg, prompt, toks, hit, aligned):
+    """The last logits after ``prompt + toks`` two ways, one request: the
+    cold engine's route (one prefill of the prompt, then a decode step per
+    token) and the cached engine's (prefill to ``hit`` (a snapshot), then
+    to ``aligned``, then the rest from the carry, then the same steps)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    dev = params["embed"]["embedding"].device
+    p = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    t = torch.as_tensor(toks, dtype=torch.long, device=dev)[None]
+
+    def steps(last, st):
+        for j in range(t.shape[1]):
+            logits, _ = lm.lm_apply(params, t[:, j:j + 1], cfg, states=st,
+                                    mode="decode")
+            last = logits[:, -1]
+        return last[0].float()
+
+    with torch.no_grad():
+        one = steps(*lm.lm_prefill(params, p, cfg))
+        carry = None
+        for a, b in ((0, hit), (hit, aligned)):
+            if b > a:
+                _, carry = lm.lm_prefill(params, p[:, a:b], cfg,
+                                         states=carry)
+        split = steps(*lm.lm_prefill(params, p[:, max(hit, aligned):], cfg,
+                                     states=carry))
+    return one, split
+
+
+def hit_split(engine, cfg, device, reqs, reps=3):
+    """The parts of a cache-hit admission at full size, each timed alone
+    (host clock around work that ends in a synchronize, median of
+    ``reps``): the crc32 over the 384 entry, its host->device restore, the
+    suffix prefill of a prompt <= 512 tokens from it, the carry advance
+    384 -> 512 of a longer prompt and the device->host snapshot of the 512
+    state; beside a cold prefill of the same short prompt.  Returns ms."""
+    import statistics as stats_mod
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serving.cache import tree_checksum
+
+    entry = next(e for e in engine.cache._entries.values()
+                 if e.key[0] == FE_PREFIX)
+    snap = entry.state
+    short = next(r for r in reqs if len(r.prompt) <= 512)
+    long = next(r for r in reqs if len(r.prompt) > 512)
+
+    def ids(r, a, b=None):
+        return torch.as_tensor(r.prompt[None, a:b], device=device)
+
+    def timed(fn):
+        out = []
+        for _ in range(reps):
+            _sync(device)
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            out.append(1e3 * (time.perf_counter() - t0))
+        return stats_mod.median(out)
+
+    p = engine.params
+    with torch.no_grad():
+        carry = type(snap)(*(x.to(device) for x in snap))
+        _, c512 = lm.lm_prefill(p, ids(long, FE_PREFIX, 512), cfg,
+                                states=carry)
+        ms = dict(
+            crc32=timed(lambda: tree_checksum(snap)),
+            restore=timed(lambda: [x.to(device, non_blocking=True)
+                                   for x in snap]),
+            suffix=timed(lambda: lm.lm_prefill(
+                p, ids(short, FE_PREFIX), cfg, states=carry)),
+            advance=timed(lambda: lm.lm_prefill(
+                p, ids(long, FE_PREFIX, 512), cfg, states=carry)),
+            snapshot=timed(lambda: [x.to("cpu", non_blocking=True, copy=True)
+                                    for x in c512]),
+            cold=timed(lambda: lm.lm_prefill(p, ids(short, 0), cfg)))
+    pinned = all(x.is_pinned() for x in snap)
+    log(f"hit admission split, {cfg.mixer} {cfg.dtype}, entry "
+        f"{entry.nbytes:,} bytes ({'pinned' if pinned else 'pageable'} "
+        f"host memory): crc32 {ms['crc32']:.2f} ms, host->device restore "
+        f"{ms['restore']:.2f} ms, suffix prefill of "
+        f"{len(short.prompt) - FE_PREFIX} tokens {ms['suffix']:.2f} ms; a "
+        f"longer prompt's carry advance 384 -> 512 {ms['advance']:.2f} ms and "
+        f"its device->host snapshot {ms['snapshot']:.2f} ms; cold prefill "
+        f"of the {len(short.prompt)}-token prompt {ms['cold']:.2f} ms")
+    return ms
+
+
+def frontend_load(params, cfg, device, spec=None, n_req=16, gen=32):
+    """(b) bf16 through ``AsyncServer``: ``n_req`` requests (2 tenants, 2
+    priorities, 4 slots, block 8) sharing the 384-token prefix, a cache of
+    3 entries' budget (LRU evicts at full size), one request expiring while
+    queued, one cancelled, ``engine.nan_state`` once (and with ``spec``,
+    ``drafter.propose`` once, in both runs, with a breaker that stays open
+    after it: the rest decodes in plain blocks).  A baseline run without
+    the NaN gives the streams of the requests admitted before it fired.
+    Checks statuses, the neighbours' streams, exact launches, no plain
+    call, and the run's artifacts through ``obs.validate``; logs TTFT cold
+    vs hit, hit rate, bytes per entry, decode tok/s and peak memory.
+    Returns the run's numbers."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.obs import JsonlSink, Obs, validate, write_metrics
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    from repro_torch.serving import Engine, PrefixCache, state_bytes_for
+    from repro_torch.serving.spec import SpecConfig
+
+    rng = np.random.RandomState(2)
+    suffixes = rng.randint(16, 257, n_req)
+    # the first admission (rid 0) ends at or before 512 tokens, so its
+    # boundary state is the shared 384 prefix's: the entry the others hit
+    suffixes[0] = 40
+    expiring, cancelled = n_req - 1, n_req - 2
+    reqs = lambda: frontend_requests(  # noqa: E731
+        cfg, suffixes, gen, seed=3, tenant=lambda i: "ab"[i % 2],
+        priority=lambda i: (i // 2) % 2,
+        deadline_s=lambda i: 0.0 if i == expiring else None)
+    per_entry = state_bytes_for(cfg)
+    cuda = device.type == "cuda"
+    name = cfg.mixer + (f" spec {spec['drafter']}" if spec else "")
+    for faulted in (False, True):
+        engine = Engine(
+            cfg, params, slots=4, max_len=FE_PREFIX + 256 + gen + 8, block=8,
+            seed=0, device=device, obs=Obs(),
+            spec=None if spec is None else SpecConfig(**spec))
+        # warm the cold, carry and resume paths through the server
+        engine.cache = PrefixCache(granularity=FE_CHUNK,
+                                   budget_bytes=4 * per_entry)
+        warm = frontend_requests(cfg, (200,), 2, seed=4)[0]
+        for rid in (-1, -2):
+            warm.rid = rid
+            _serve_async(engine, [warm])
+        engine.cache = PrefixCache(granularity=FE_CHUNK,
+                                   budget_bytes=3 * per_entry + per_entry // 2,
+                                   namespace=cfg.name, obs=engine.obs)
+        engine.obs.reset()
+        engine.reset_breaker()
+        art = ROOT / "build" / "chip_smoke" / f"{name.replace(' ', '_')}"
+        art.mkdir(parents=True, exist_ok=True)
+        sink = JsonlSink(str(art / "events.jsonl"))
+        engine.obs.attach(sink)
+        faults = [FaultSpec("engine.nan_state", at=2, arg=1)] \
+            if faulted else []
+        if spec:
+            faults.append(FaultSpec("drafter.propose", at=12))
+        engine.faults = FaultPlan(*faults) if faults else None
+        if not engine.cancel(cancelled):
+            raise AssertionError(f"request {cancelled} not cancellable")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        batch = reqs()
+        results, launches, wall = _run_counted(
+            device, lambda: _serve_async(engine, batch))
+        sink.close()
+        write_metrics(engine.obs.snapshot(), str(art / "metrics.json"))
+        if not faulted:  # free the baseline engine before the measured run
+            base = {r.rid: r.tokens for r in results}
+            del engine
+    statuses = collections.Counter(r.status for r in results)
+    want_status = {"ok": n_req - 3, "error": 1, "timeout": 1, "cancelled": 1}
+    by_rid = {r.rid: r for r in results}
+    evs = engine.obs.events()
+    fired = next(e["seq"] for e in evs if e["name"] == "fault.fired"
+                 and e["point"] == "engine.nan_state")
+    before = [e["rid"] for e in evs if e["name"] == "request.admitted"
+              and e["seq"] < fired]
+    quarantined = [r.rid for r in results if r.status == "error"]
+    neighbours = [rid for rid in before if rid not in quarantined]
+    parted = [rid for rid in neighbours if by_rid[rid].tokens != base[rid]]
+    admitted = _admitted(engine)
+    want, advances = _want_launches(cfg, engine, admitted)
+    st = engine.stats
+    reg = engine.obs.registry
+    cache = engine.cache
+    cs = cache.stats()
+    cold = reg.get("serving_ttft_cold_seconds")
+    hit = reg.get("serving_ttft_hit_seconds")
+    decode_toks = max(st["generated_tokens"] - len(results), 0)
+    out = dict(
+        wall_s=wall, statuses=dict(statuses),
+        ttft_cold_p50_ms=1e3 * (cold.quantile(0.5) or 0.0),
+        ttft_hit_p50_ms=1e3 * (hit.quantile(0.5) or 0.0),
+        n_cold=cold.count(), n_hit=hit.count(), hit_rate=cs["hit_rate"],
+        bytes_per_entry=cs["bytes"] / max(cs["entries"], 1),
+        evicted=cs["evicted_bytes"],
+        decode_tok_s=decode_toks / st["decode_s"] if st["decode_s"] else 0.0,
+        peak_gib=torch.cuda.max_memory_allocated(device) / 2**30 if cuda
+        else 0.0, launches=launches, advances=advances)
+    log(f"front-end load, {name}, {cfg.dtype}, through AsyncServer: "
+        f"{n_req} requests (2 tenants, 2 priorities, 4 slots, block 8, gen "
+        f"{gen}) in {wall:.2f}s | statuses {dict(statuses)} | TTFT p50 cold "
+        f"{out['ttft_cold_p50_ms']:.1f} ms ({out['n_cold']}) vs hit "
+        f"{out['ttft_hit_p50_ms']:.1f} ms ({out['n_hit']}) | hit rate "
+        f"{cs['hit_rate']:.2f} ({cs['hits']:.0f} hits, {cs['misses']:.0f} "
+        f"misses), {cs['entries']:.0f} entries of "
+        f"{out['bytes_per_entry']:,.0f} bytes (state_bytes_for "
+        f"{per_entry:,}), {cs['evicted_bytes']:,.0f} bytes evicted | "
+        f"decode {out['decode_tok_s']:.1f} tok/s | peak memory "
+        f"{out['peak_gib']:.2f} GiB | quarantined {quarantined}, neighbours "
+        f"admitted before the NaN {neighbours}: {len(neighbours) - len(parted)}"
+        f" keep their baseline streams | breaker trips {st['breaker_trips']}"
+        f", spec rounds {st['spec_rounds']} | launches {launches}")
+    if dict(statuses) != want_status or \
+            by_rid[expiring].status != "timeout" or \
+            by_rid[cancelled].status != "cancelled":
+        raise AssertionError(f"statuses {dict(statuses)}, want {want_status}")
+    if parted or not neighbours:
+        raise AssertionError(f"neighbours {parted} parted from the baseline")
+    if cuda and launches != want:
+        raise AssertionError(f"kernel launches {launches}, want {want}")
+    if out["bytes_per_entry"] != per_entry or not cs["evicted_bytes"] or \
+            not cs["hits"]:
+        raise AssertionError(f"cache: {cs}, {per_entry} bytes an entry")
+    if spec and (st["breaker_trips"] != 1 or not st["spec_rounds"]):
+        raise AssertionError(f"{st['breaker_trips']} breaker trips, want 1 "
+                             f"(after {st['spec_rounds']} spec rounds)")
+    art = ROOT / "build" / "chip_smoke" / f"{name.replace(' ', '_')}"
+    rc = validate.main([
+        "--metrics", str(art / "metrics.json"),
+        "--events", str(art / "events.jsonl"),
+        "--expect-requests", str(n_req),
+        "--expect-terminal-statuses", "cancelled,error,ok,timeout",
+        "--expect-counter", "serving_quarantined_total=1",
+        "--expect-counter-min", "cache_hits_total=1"])
+    if rc:
+        raise AssertionError("the run's artifacts fail obs.validate")
+    return out, engine
+
+
+def frontend_phase(params, cfg, device, spec=False):
+    """Phase 8 for ``cfg.mixer``: (a) fp32 exactness, (b) bf16 under load,
+    then the hit admission's time split on (b)'s cache; with ``spec`` also
+    (b) with the n-gram drafter.  Returns (b)'s numbers and the split."""
+    frontend_exact(params, cfg, device)
+    load, engine = frontend_load(params, cfg, device)
+    reqs = frontend_requests(cfg, FE_SUFFIXES, 2)
+    split = hit_split(engine, cfg, device, reqs)
+    del engine
+    if spec:
+        frontend_load(params, cfg, device, spec=dict(
+            k=SPEC_K, drafter="ngram", breaker_zero_rounds=2**31,
+            breaker_cooldown_blocks=2**31))
+    return load, split
 
 
 # --------------------------------------------------------------------------
@@ -1530,9 +2086,12 @@ def main() -> int:
     check_identity(params, ahla_cfg.replace(dtype="float32"))
 
     launches, plain = serve(params, cfg, device)
+    profile_decode(params, cfg, device)
     ahla_launches, ahla_plain = serve(params, ahla_cfg, device)
     spec = spec_phase(params, cfg, device, plain["streams"])
     ahla_spec = spec_phase(params, ahla_cfg, device, ahla_plain["streams"])
+    frontend_phase(params, cfg, device, spec=True)
+    frontend_phase(params, ahla_cfg, device)
     del params
     train_launches, _ = train(device)
     ahla_train_launches, _ = train(device, mixer="ahla")

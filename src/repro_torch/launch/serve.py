@@ -14,10 +14,31 @@ and on the CPU (plain versions of the kernels) with ``--device cpu``:
 ``--mixer ahla`` swaps the arch's sequence op for AHLA (same weights
 layout, its own kernels).  ``--spec ngram`` (prompt lookup) or ``--spec lm``
 (a draft LM: ``--draft-arch``, reduced, random weights, the target's
-vocabulary) decodes speculatively, ``--spec-k`` draft tokens a round:
+vocabulary) decodes speculatively, ``--spec-k`` draft tokens a round.
+
+The serving front-end:
+
+* ``--stream`` serves through the asyncio front-end
+  (``serving.server.AsyncServer``): per-token async streams, backpressure,
+  graceful drain;
+* ``--cache-mb N`` attaches a prefix/state cache of N MiB of host memory
+  keyed every ``--cache-chunk`` tokens; ``--shared-prefix T`` gives every
+  synthetic prompt the same first T tokens, so admissions after the first
+  resume from a cached snapshot;
+* ``--deadline-s`` gives every request a wall-clock budget (expiry ->
+  ``status=timeout``); ``--inject point[@at[+]][:arg]`` (repeatable)
+  schedules deterministic faults from ``runtime.faults`` — e.g.
+  ``engine.nan_state@1:0`` poisons slot 0's state before the 2nd decode
+  block (quarantine);
+* ``--metrics-out`` / ``--events-out`` write the measured run's metrics
+  snapshot (``repro.obs.metrics/v1``) and event log
+  (``repro.obs.events/v1``), which ``python -m repro_torch.obs.validate``
+  checks; ``--profile-dir`` captures a ``torch.profiler`` trace of it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
-        --device cpu --spec ngram
+        --device cpu --stream --cache-mb 1 --cache-chunk 16 \
+        --shared-prefix 32 --prompt-len 48 --inject engine.nan_state@1:0 \
+        --metrics-out m.json --events-out e.jsonl
 """
 
 from __future__ import annotations
@@ -32,9 +53,31 @@ import torch
 from ..configs import get_config
 from ..models import lm
 from ..models.param import init_params
-from ..serving.engine import Engine, GenRequest
-from ..serving.sampling import SamplingConfig
+from ..obs import JsonlSink, Obs, profile_capture, write_metrics
+from ..runtime.faults import FaultPlan, parse_fault
+from ..serving import Engine, GenRequest, PrefixCache, SamplingConfig
 from ..serving.spec import SpecConfig
+
+#: default cache key granularity: hla-1b's chunk width in the reference
+#: config (a multiple of the port's 64-token kernel chunk)
+CACHE_CHUNK = 128
+
+
+def _run_streaming(engine, requests):
+    """Serve through the asyncio front-end: every request submitted
+    concurrently, each stream consumed by its own task, graceful drain on
+    exit.  Results come back in request order (as ``engine.run``)."""
+    import asyncio
+
+    from ..serving.server import AsyncServer, collect
+
+    async def _main():
+        async with AsyncServer(engine) as srv:
+            outs = await asyncio.gather(*[collect(srv, r)
+                                          for r in requests])
+        return [res for _, res in outs]
+
+    return asyncio.run(_main())
 
 
 def main(argv=None):
@@ -63,6 +106,34 @@ def main(argv=None):
                          "(loaded reduced)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve through the asyncio streaming front-end "
+                         "(serving.server.AsyncServer)")
+    ap.add_argument("--cache-mb", type=float, default=0.0,
+                    help="prefix/state cache budget in MiB of host memory "
+                         "(0 = no cache)")
+    ap.add_argument("--cache-chunk", type=int, default=0,
+                    help="cache key granularity in tokens (0 = "
+                         f"{CACHE_CHUNK})")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="tokens shared by every synthetic prompt — nonzero "
+                         "exercises prefix-cache hits")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request wall-clock budget; expiry -> "
+                         "status=timeout with the partial stream")
+    ap.add_argument("--inject", action="append", default=[],
+                    metavar="POINT[@AT[+]][:ARG]",
+                    help="schedule a deterministic fault (runtime.faults "
+                         "catalog; repeatable)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="dump the final metrics registry snapshot "
+                         "(repro.obs.metrics/v1 JSON) on exit")
+    ap.add_argument("--events-out", default=None, metavar="PATH",
+                    help="stream span/event records (repro.obs.events/v1 "
+                         "JSONL) of the measured run")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the measured "
+                         "traffic (not the warmup) into DIR")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced, mixer=args.mixer)
@@ -80,33 +151,67 @@ def main(argv=None):
                                 temperature=args.temperature,
                                 top_k=args.top_k, top_p=args.top_p),
         block=args.block, seed=args.seed, device=device, spec=spec,
+        obs=Obs(),
     )
     del params  # the engine keeps its own compute-dtype copy
     rng = np.random.RandomState(args.seed)
+    shared = min(args.shared_prefix, args.prompt_len)
+    prefix = rng.randint(2, cfg.vocab, size=shared)
     requests = [
-        GenRequest(rid=i, prompt=rng.randint(2, cfg.vocab,
-                                             size=args.prompt_len),
-                   max_new=args.gen_len)
+        GenRequest(rid=i, prompt=np.concatenate([
+            prefix, rng.randint(2, cfg.vocab, size=args.prompt_len - shared),
+        ]).astype(np.int64), max_new=args.gen_len,
+            deadline_s=args.deadline_s)
         for i in range(args.requests)
     ]
-    # warm up (kernel build, allocator, library handles) so TTFT and tok/s
-    # measure steady state
-    engine.run([GenRequest(rid=-1, prompt=requests[0].prompt,
-                           max_new=args.block)])
-    engine.reset_stats()
+    # warm up (kernel build, allocator, library handles) through the
+    # measured execution mode, so TTFT and tok/s measure steady state
+    runner = _run_streaming if args.stream else (
+        lambda eng, reqs: eng.run(reqs))
+    runner(engine, [GenRequest(rid=-1, prompt=requests[0].prompt,
+                               max_new=args.block)])
+    cache = None
+    if args.cache_mb > 0:
+        gran = args.cache_chunk or CACHE_CHUNK
+        budget = int(args.cache_mb * 2**20)
+        if shared and shared < gran + 1:
+            print(f"[serve] note: shared prefix {shared} <= cache "
+                  f"granularity {gran}: no cache hits possible")
+        # warm the carry and resume paths against a throwaway cache, so
+        # the measured run's first hit pays a lookup, not a first launch
+        engine.cache = PrefixCache(granularity=gran, budget_bytes=budget)
+        for rid in (-2, -3):  # miss + insert, then hit + resume
+            runner(engine, [GenRequest(rid=rid, prompt=requests[0].prompt,
+                                       max_new=2)])
+        cache = PrefixCache(granularity=gran, budget_bytes=budget,
+                            namespace=cfg.name, obs=engine.obs)
+        engine.cache = cache
+    # fresh obs epoch: the artifacts below describe only measured traffic
+    engine.obs.reset()
     engine.reset_breaker()  # warmup zero-acceptance must not leak
+    sink = None
+    if args.events_out:
+        sink = JsonlSink(args.events_out)
+        engine.obs.attach(sink)
+    # attach the fault plan after the warmup, so hit counts start at the
+    # measured traffic
+    if args.inject:
+        engine.faults = FaultPlan(*[parse_fault(s) for s in args.inject])
     t0 = time.perf_counter()
-    results = engine.run(requests)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with profile_capture(args.profile_dir, obs=engine.obs):
+        results = runner(engine, requests)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     st = engine.stats
     gen = st["generated_tokens"]
     # each request's first token comes from its prefill; count only
-    # decode-block tokens against decode wall time
+    # decode-block tokens against decode wall time (non-ok results may
+    # have produced no tokens at all)
     decode_toks = max(gen - len(results), 0)
-    ttft = np.asarray(st["ttft_s"]) if st["ttft_s"] else np.zeros(1)
-    p50, p99 = np.percentile(ttft, 50), np.percentile(ttft, 99)
+    ttft = engine.obs.registry.get("serving_ttft_seconds")
+    p50 = ttft.quantile(0.5) or 0.0
+    p99 = ttft.quantile(0.99) or 0.0
     decode_tps = decode_toks / st["decode_s"] if st["decode_s"] else 0.0
     print(
         f"[serve] {len(results)} requests, {gen} generated tokens in "
@@ -124,10 +229,25 @@ def main(argv=None):
             "tok/round")
     statuses = collections.Counter(r.status for r in results)
     status_str = " ".join(
-        f"{k}={statuses[k]}" for k in ("ok", "error") if statuses[k])
+        f"{k}={statuses[k]}" for k in ("ok", "error", "timeout", "cancelled")
+        if statuses[k])
     print(f"[serve] statuses: {status_str or 'ok=0'} | "
           f"quarantined={st['quarantined']} "
           f"breaker_trips={st['breaker_trips']}")
+    if cache is not None:
+        cs = cache.stats()
+        print(
+            f"[serve] cache: {int(cs['entries'])} entries "
+            f"{cs['bytes'] / 2**20:.2f} MiB | hit rate "
+            f"{cs['hit_rate']:.2f} ({int(cs['hits'])} hits, "
+            f"{int(cs['misses'])} misses, "
+            f"{int(cs['evicted_bytes'])} bytes evicted)")
+    if sink is not None:
+        sink.close()
+        print(f"[serve] events -> {args.events_out}")
+    if args.metrics_out:
+        write_metrics(engine.obs.snapshot(), args.metrics_out)
+        print(f"[serve] metrics -> {args.metrics_out}")
     return results
 
 

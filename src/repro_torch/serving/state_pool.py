@@ -4,7 +4,8 @@ The pooled states are the model's state tuple with every leaf
 ``(layers, slots, ...)``; the slot axis is axis 1 of every leaf.  The decode
 kernel updates these tensors in place, so ``read_slot`` and
 ``snapshot_slot`` return copies: a reference to the pool would change under
-the next decode step.
+the next decode step.  ``write_slot`` (and ``restore_slot``) accept a
+single-slot state on any device: a host snapshot is copied in.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ class StatePool:
         return self._template_fn(1)
 
     def write_slot(self, slot: int, state) -> None:
-        """Copy a single-slot state (slot axis of extent 1) into ``slot``;
-        other slots are untouched."""
+        """Copy a single-slot state (slot axis of extent 1, on the pool's
+        device or the host) into ``slot``; other slots are untouched."""
         for pooled, new in zip(self.states, state):
             pooled[:, slot].copy_(new[:, 0])
 
@@ -57,14 +58,21 @@ class StatePool:
 
     # -- snapshot / rollback (speculative decoding) -------------------------
 
-    def snapshot_slot(self, slot: int):
+    def snapshot_slot(self, slot: int, *, host: bool = False):
         """An O(state) copy of ``slot``'s decode state, a single-slot tuple.
         It stays as it was through later in-place decode steps on the pool.
-        (The reference's ``host=True``, a snapshot in host memory for the
-        prefix cache, is not ported: nothing here keeps one yet.)"""
-        return self.read_slot(slot)
+
+        ``host=True`` returns CPU tensors instead: long-lived snapshots (the
+        prefix cache holds many) then live in host RAM and take no device
+        memory.  The transfer is a deliberate host sync; callers on the hot
+        path keep ``host=False``."""
+        snap = self.read_slot(slot)
+        if not host:
+            return snap
+        # sync-point: host-RAM state snapshot
+        return type(snap)(*(x.cpu() for x in snap))
 
     def restore_slot(self, slot: int, snapshot) -> None:
-        """Roll ``slot`` back to ``snapshot`` (from ``snapshot_slot``): one
-        copy per leaf, other slots untouched."""
+        """Roll ``slot`` back to ``snapshot`` (from ``snapshot_slot``, on the
+        device or the host): one copy per leaf, other slots untouched."""
         self.write_slot(slot, snapshot)
