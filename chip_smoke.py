@@ -55,9 +55,26 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    carry advance and spec round and 24 step kernels per decode or replay
    step, and no plain version;
 6. train hla-1b at full width and depth for 5 AdamW steps on one repeated
-   2 x 2048 batch, once with either mixer, count the kernel launches of
-   each run (24 forward + 24 backward per step of its mixer's kernels, no
-   other, no plain version) and check the loss falls;
+   2 x 2048 batch, once with either mixer, with the config's per-layer
+   remat (``remat="full"``), count the kernel launches of each run (per
+   step 48 forward, 24 of them the backward's recompute, + 24 backward of
+   its mixer's kernels, no other, no plain version) and check the loss
+   falls; then the same 5 steps without remat (24 + 24), to log what
+   recomputing costs in step time and peak memory;
+9. (runs after phase 6) full hla-1b, HLA2, on one fp32 2 x 2048 batch
+   whose labels are masked unevenly across the microbatch boundary:
+   (b) ``remat="full"`` against ``"none"``: the loss and every gradient
+   leaf within ``TOL_FP32``, at exactly 48 + 24 and 24 + 24 launches;
+   (a) 2 microbatches against the sum of the two rows' gradients taken
+   alone with the whole batch's denominator: fp32 leaves, the loss and
+   every leaf within ``TOL_FP32``; 2 microbatches against 1 and each
+   run's peak memory are logged; (c) bf16: a
+   ``FaultTolerantLoop`` that checkpoints after step 1 (17.05 GB: fp32
+   parameters and both moments) and dies at an injected ``train.step``
+   fault, then a fresh loop that resumes from step 1 and gives the
+   uninterrupted run's step-2 loss bit for bit, with no checksum failure;
+   logs the save and restore seconds and GB/s (the checkpoint lives in a
+   temporary directory, removed when the phase ends);
 7. time each kernel and its plain version at its path's shapes (the step
    kernels also at 16 rows, one slot; the chunk forwards also at the
    verify shape, ``[verify]``).
@@ -80,6 +97,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 
 # published H100 SXM peaks (NVIDIA data sheet) for the lower bounds
 PEAK_BYTES_S = 3.35e12
@@ -515,16 +533,12 @@ def check_small_model(device, mixer=None):
 
 def _loss_grads(params, batch, cfg):
     """The model's loss and its gradient for every parameter leaf (in
-    ``leaf_paths`` order)."""
-    import torch
+    ``leaf_paths`` order), through the train step's ``accumulate_grads``."""
+    from repro_torch.distributed.steps import accumulate_grads
+    from repro_torch.models.param import leaf_paths
 
-    from repro_torch.models import lm
-    from repro_torch.models.param import leaf_paths, tree_map
-
-    live = tree_map(lambda x: x.detach().requires_grad_(True), params)
-    loss, _ = lm.lm_loss(live, batch["tokens"], batch["labels"], cfg)
-    flat = [x for _, x in leaf_paths(live)]
-    return loss.detach(), torch.autograd.grad(loss, flat)
+    loss, _, grads = accumulate_grads(params, batch, cfg)
+    return loss, [g for _, g in leaf_paths(grads)]
 
 
 def check_small_train(device, mixer=None):
@@ -1508,23 +1522,61 @@ TRAIN_KERNELS = {"hla2": ("hla2_chunk", "hla2_chunk_fwd", "hla2_chunk_bwd"),
                  "ahla": ("ahla_chunk", "ahla_chunk_fwd", "ahla_chunk_bwd")}
 
 
-def train(device, mixer="hla2", steps=5, batch=2, seq=2048):
+def _want_train(cfg, steps=1, microbatches=1):
+    """Each training kernel's launches over ``steps`` steps of ``cfg``: per
+    layer and microbatch one forward and one backward, and under
+    ``remat="full"`` the forward again when backward recomputes the
+    layer."""
+    _, fwd, bwd = TRAIN_KERNELS[cfg.mixer]
+    passes = cfg.n_layers * steps * microbatches
+    return {fwd: passes * (2 if cfg.remat == "full" else 1), bwd: passes}
+
+
+def _count_train(device, cfg, fn):
+    """``fn()`` with the launch counts zeroed before and read after, and
+    the plain versions of ``cfg.mixer``'s training kernels counted.
+    Returns ``(fn's result, launches)``, where on the CPU (a rehearsal)
+    the launches are the plain calls under their kernels' names."""
+    import collections
+
+    from repro_torch.kernels.ops import LAUNCHES
+
+    mod_name, fwd, bwd = TRAIN_KERNELS[cfg.mixer]
+    plain_calls, restore = _count_plain_calls(
+        [(mod_name, f"{fwd}_plain"), (mod_name, f"{bwd}_plain")])
+    _sync(device)
+    LAUNCHES.clear()  # count this path only
+    try:
+        out = fn()
+        _sync(device)
+    finally:
+        restore()
+    if device.type == "cuda":
+        if plain_calls:
+            raise AssertionError(f"plain versions called: {plain_calls}")
+        return out, dict(LAUNCHES)
+    return out, dict(collections.Counter(
+        name.removesuffix("_plain") for name in plain_calls))
+
+
+def train(device, mixer="hla2", steps=5, batch=2, seq=2048, remat=None):
     """AdamW steps of full-width hla-1b with ``mixer`` (24 layers, bf16
-    activations, fp32 parameters and moments) on one repeated synthetic
-    batch.  Returns the launch counts of the run and its summary numbers."""
+    activations, fp32 parameters and moments; the config's
+    ``remat="full"`` unless ``remat`` says otherwise) on one repeated
+    synthetic batch.  Returns the launch counts of the run and its summary
+    numbers."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.distributed.steps import make_train_step
-    from repro_torch.kernels.ops import LAUNCHES
     from repro_torch.models import lm
     from repro_torch.models.param import init_params
     from repro_torch.optim import adamw
 
     cfg = get_config("hla-1b", mixer=mixer)
-    mod_name, fwd, bwd = TRAIN_KERNELS[mixer]
+    cfg = cfg if remat is None else cfg.replace(remat=remat)
     params = init_params(lm.lm_specs(cfg), 0, device)
     # with one warmup step, the default lr 3e-4 moves every weight by ~lr
     # at once: on this random-weight model the loss rose 11.0 -> 18.2 and
@@ -1535,43 +1587,307 @@ def train(device, mixer="hla2", steps=5, batch=2, seq=2048):
     step_fn = make_train_step(cfg, opt_cfg)
     host = SyntheticStream(DataConfig(cfg.vocab, seq, batch, seed=0)).batch(0)
     data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-    # count calls of the plain versions too: the run must make none
-    plain_calls, restore = _count_plain_calls(
-        [(mod_name, f"{fwd}_plain"), (mod_name, f"{bwd}_plain")])
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    LAUNCHES.clear()  # count the main path only
     losses, norms, step_s = [], [], []
-    try:
+
+    def run():
+        nonlocal params, state
         for _ in range(steps):
             t0 = time.perf_counter()
             params, state, m = step_fn(params, state, data)
             losses.append(float(m["loss"]))  # waits for the step
             step_s.append(time.perf_counter() - t0)
             norms.append(float(m["grad_norm"]))
-    finally:
-        restore()
-    launches = dict(LAUNCHES)
+
+    _, launches = _count_train(device, cfg, run)
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     p50 = float(np.percentile(step_s, 50))
     log(f"trained {cfg.name} ({cfg.mixer}; {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.dtype} activations, fp32 parameters and "
-        f"moments) for {steps} AdamW steps on one {batch} x {seq} batch: loss "
+        f"moments, remat {cfg.remat}) for {steps} AdamW steps on one "
+        f"{batch} x {seq} batch: loss "
         f"{' '.join(f'{x:.4f}' for x in losses)} | grad norm "
         f"{' '.join(f'{x:.3f}' for x in norms)} | step "
         f"{' '.join(f'{x:.3f}' for x in step_s)} s | step p50 {p50:.3f}s "
         f"| {batch * seq / p50:.0f} tok/s | peak memory {peak:.2f} GiB | "
-        f"launches {launches} | plain calls {len(plain_calls)}")
+        f"launches {launches}")
     if not all(np.isfinite(losses + norms)):
         raise AssertionError("non-finite loss or gradient norm")
     if not losses[-1] < losses[0]:
         raise AssertionError("the loss did not fall on the repeated batch")
-    want = {fwd: cfg.n_layers * steps, bwd: cfg.n_layers * steps}
-    if launches != want or plain_calls:
-        raise AssertionError(f"kernel launches {launches}, want {want}; "
-                             f"plain calls {plain_calls}")
+    want = _want_train(cfg, steps)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, want {want}")
     return launches, dict(step_p50_s=p50, tok_s=batch * seq / p50,
                           peak_gib=peak, losses=losses)
+
+
+def train_phase(device, mixer="hla2"):
+    """Phase 6 for one mixer: the config's remat run (the main path, whose
+    launches the kernels line reports), then the same steps without remat,
+    to say what recomputing costs."""
+    launches, full = train(device, mixer)
+    _, none = train(device, mixer, remat="none")
+    log(f"remat cost ({mixer}): step p50 {full['step_p50_s']:.3f}s with "
+        f"remat, {none['step_p50_s']:.3f}s without "
+        f"({full['step_p50_s'] / none['step_p50_s'] - 1:+.1%}); peak memory "
+        f"{full['peak_gib']:.2f} GiB with, {none['peak_gib']:.2f} GiB "
+        f"without; losses equal: {full['losses'] == none['losses']}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 9: microbatches, remat and a restart (runs after phase 6)
+# --------------------------------------------------------------------------
+
+
+def _uneven_batch(cfg, device, batch=2, seq=2048):
+    """One synthetic batch whose label mask is uneven across the
+    microbatch boundary (row 0 loses its first third of labels, as
+    ``tests/test_distributed.py`` masks its first rows)."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+
+    host = SyntheticStream(DataConfig(cfg.vocab, seq, batch, seed=0)).batch(0)
+    host["labels"][0, : seq // 3] = -1
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def _grads_phase(device, cfg, params, batch, microbatches, label):
+    """``accumulate_grads`` counted and measured: returns ``(loss, grads)``
+    and fails unless its launches are exactly the path's."""
+    import torch
+
+    from repro_torch.distributed.steps import accumulate_grads
+
+    held = peak = float("nan")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device) / 2**30
+    t0 = time.perf_counter()
+    (loss, _, grads), launches = _count_train(
+        device, cfg, lambda: accumulate_grads(params, batch, cfg,
+                                              microbatches))
+    dt = time.perf_counter() - t0
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+    want = _want_train(cfg, microbatches=microbatches)
+    log(f"{label}: loss {float(loss):.6f} | {dt:.3f}s | peak memory "
+        f"{peak:.2f} GiB, {peak - held:.2f} above the {held:.2f} GiB held "
+        f"before the call | launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    return loss, grads
+
+
+def _grad_errs(a, b):
+    """Loss and per-leaf gradient errors of ``a`` against ``b``, each
+    relative to ``b``'s max|g| for that leaf."""
+    (la, ga), (lb, gb) = a, b
+    return rel_err(la, lb), {k: rel_err(x, gb[k]) for k, x in ga.items()}
+
+
+def _same_grads(a, b, label):
+    """Loss and every gradient leaf of ``a`` against ``b`` within
+    ``TOL_FP32`` relative to the leaf's max|g|."""
+    e_l, errs = _grad_errs(a, b)
+    worst = max(errs, key=errs.get)
+    log(f"{label}: loss rel {e_l:.2e} (tol {TOL_FP32:.0e}), gradients of "
+        f"{len(errs)} leaves rel <= {errs[worst]:.2e} ({worst}; tol "
+        f"{TOL_FP32:.0e})")
+    if not (e_l <= TOL_FP32 and errs[worst] <= TOL_FP32):
+        raise AssertionError(f"{label}: gradients disagree")
+
+
+def _flat(tree):
+    from repro_torch.models.param import leaf_paths
+
+    return {"/".join(p): x for p, x in leaf_paths(tree)}
+
+
+def _row_grads(params, batch, cfg):
+    """The loss and gradients of ``batch`` as the sum of its rows', each
+    row's taken alone (``lm_loss`` on one row, normalised by the whole
+    batch's valid-label count) and the rows' gradients added in fp32:
+    what ``accumulate_grads`` with one row per microbatch must give, by
+    the same GEMMs."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.param import tree_map
+
+    n_valid = (batch["labels"] >= 0).sum().clamp_min(1).float()
+    live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    names, leaves = zip(*_flat(live).items())
+    loss, total = 0.0, None
+    for r in range(batch["tokens"].shape[0]):
+        l, _ = lm.lm_loss(live, batch["tokens"][r:r + 1],
+                          batch["labels"][r:r + 1], cfg, denom=n_valid)
+        g = torch.autograd.grad(l, leaves)
+        loss = loss + l.detach()
+        if total is None:
+            total = g
+        else:
+            for a, b in zip(total, g):
+                a.add_(b)
+        del g
+    return loss, dict(zip(names, total))
+
+
+def accum_remat_phase(device, cfg=None, seq=2048):
+    """On one fp32 batch of 2 rows whose labels are masked unevenly across
+    the microbatch boundary:
+
+    (b) the config's remat (``"full"``) against ``"none"``, 1 microbatch:
+    the same loss and every gradient leaf within ``TOL_FP32``;
+    (a) ``accumulate_grads`` with 2 microbatches against the sum of the
+    two rows' gradients, each taken alone with the whole batch's label
+    count as denominator (``_row_grads``): the same GEMMs on both sides, so
+    the loss and every gradient leaf within ``TOL_FP32``, and every leaf
+    fp32.  A wrong denominator would move the gradients by ~25% (the rows
+    hold 1366 and 2048 valid labels), a bf16 accumulator by up to 2^-8.
+    2 microbatches against 1 is logged, not held: a 1-microbatch pass runs
+    its projections as GEMMs of twice the rows, for which cuBLAS picks
+    other kernels, and 24 fp32 layers amplify those last-bit differences
+    (``scripts/grad_batch_variance.py`` on an H100, 700 W: gradients up to
+    1.1e-3 apart; at 1 layer 3.6e-6).
+
+    Each ``accumulate_grads`` run launches exactly its path's kernels
+    (48 + 24 per microbatch with remat, 24 + 24 without) and no plain
+    version; its peak memory is logged beside what was held before it
+    (the parameters, and the earlier runs' gradients still compared)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+
+    cfg = (cfg or get_config("hla-1b")).replace(dtype="float32")
+    params = init_params(lm.lm_specs(cfg), 0, device)
+    batch = _uneven_batch(cfg, device, seq=seq)
+    n_valid = [int((lab >= 0).sum()) for lab in batch["labels"]]
+    what = (f"{cfg.name} ({cfg.mixer}, {cfg.n_layers} layers, fp32, "
+            f"2 x {seq}, valid labels per row {n_valid}")
+
+    def grads(c, mb, label):
+        loss, g = _grads_phase(device, c, params, batch, mb, label)
+        return loss, _flat(g)
+
+    one = grads(cfg, 1, f"{what}, remat {cfg.remat}) 1 microbatch")
+    none = grads(cfg.replace(remat="none"), 1,
+                 f"{what}, remat none) 1 microbatch")
+    _same_grads(one, none, f"(b) remat {cfg.remat} vs none")
+    del none
+    two = grads(cfg, 2, f"{what}, remat {cfg.remat}) 2 microbatches")
+    dtypes = {str(g.dtype) for g in two[1].values()}
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"(a) gradients accumulated in {dtypes}")
+    _same_grads(two, _row_grads(params, batch, cfg),
+                "(a) 2 microbatches vs the sum of the rows' gradients")
+    e_l, errs = _grad_errs(two, one)
+    worst = max(errs, key=errs.get)
+    log(f"(a) reading, not held: 2 microbatches vs 1: loss rel {e_l:.2e}, "
+        f"gradients rel <= {errs[worst]:.2e} ({worst})")
+    del one, two, params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def restart_phase(device, cfg=None, seq=2048, steps=3):
+    """(c) bf16, lr 1e-5: the per-step losses of ``steps`` uninterrupted
+    AdamW steps; then a ``FaultTolerantLoop`` that checkpoints after step 1
+    (``ckpt_every=2``, ``keep=1``) and dies at ``train.step`` hit 2, and a
+    fresh loop over the same directory, which must resume from step 1 and
+    give the uninterrupted run's step-2 loss bit for bit, with no checksum
+    failure.  Logs the save's and the restore's seconds and GB/s."""
+    import json
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+    from repro_torch.obs import Obs
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec, InjectedFault
+    from repro_torch.runtime.ft import FaultTolerantLoop
+
+    cfg = cfg or get_config("hla-1b")
+    opt_cfg = adamw.OptConfig(lr=1e-5, warmup_steps=1, total_steps=steps)
+    step_fn = make_train_step(cfg, opt_cfg)
+    stream = SyntheticStream(DataConfig(cfg.vocab, seq, 2, seed=0))
+
+    def place(host):
+        return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+    def fresh():
+        params = init_params(lm.lm_specs(cfg), 0, device)
+        return params, adamw.init_opt_state(params)
+
+    params, state = fresh()
+    want = []
+    for step in range(steps):
+        params, state, m = step_fn(params, state, place(stream.batch(step)))
+        want.append(float(m["loss"]))
+    del params, state, m
+    lines = []
+
+    def keep(msg):
+        lines.append(msg)
+        log(msg)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        metrics = f"{d}/metrics.jsonl"
+        loop = FaultTolerantLoop(
+            step_fn, stream, f"{d}/ckpt", ckpt_every=2, keep=1,
+            metrics_path=metrics, faults=FaultPlan(FaultSpec("train.step",
+                                                             at=2)),
+            log=keep, place_batch=place, obs=Obs())
+        try:
+            loop.run(*fresh(), steps)
+        except InjectedFault as e:
+            if e.point != "train.step":
+                raise
+        else:
+            raise AssertionError("the injected train.step fault did not fire")
+        saved = loop.obs.registry
+        del loop
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        loop = FaultTolerantLoop(step_fn, stream, f"{d}/ckpt", ckpt_every=2,
+                                 keep=1, metrics_path=metrics, log=keep,
+                                 place_batch=place, obs=Obs())
+        loop.run(*fresh(), steps)
+        with open(metrics) as f:
+            got = [(r["step"], r["loss"]) for r in map(json.loads, f)]
+        with open(f"{d}/ckpt/step_00000001/manifest.json") as f:
+            n_bytes = sum(np.dtype(x["dtype"]).itemsize * math.prod(x["shape"])
+                          for x in json.load(f)["leaves"].values())
+        reg = loop.obs.registry
+    save_s = saved.get("ckpt_save_seconds").sum()
+    restore_s = reg.get("ckpt_restore_seconds").sum()
+    crc = reg.get("ckpt_checksum_failures_total").total()
+    log(f"(c) {cfg.name} ({cfg.mixer}, {cfg.n_layers} layers, {cfg.dtype}, "
+        f"2 x {seq}) restart: uninterrupted losses {want}; the loops' "
+        f"(step, loss) {got}; one checkpoint of {n_bytes:,} bytes: save "
+        f"{save_s:.3f}s ({n_bytes / save_s / 1e9:.2f} GB/s, "
+        f"{saved.get('ckpt_saves_total').total():.0f} saved), restore "
+        f"{restore_s:.3f}s ({n_bytes / restore_s / 1e9:.2f} GB/s); "
+        f"checksum failures {crc:.0f}")
+    if "[ft] resumed from step 1" not in lines:
+        raise AssertionError("the second loop did not resume from step 1")
+    if got != [(0, want[0]), (1, want[1]), (2, want[2])]:
+        raise AssertionError(f"the loops' losses {got} are not the "
+                             f"uninterrupted run's {want}")
+    if crc:
+        raise AssertionError("checksum failures on restore")
 
 
 # --------------------------------------------------------------------------
@@ -2093,8 +2409,10 @@ def main() -> int:
     frontend_phase(params, cfg, device, spec=True)
     frontend_phase(params, ahla_cfg, device)
     del params
-    train_launches, _ = train(device)
-    ahla_train_launches, _ = train(device, mixer="ahla")
+    train_launches = train_phase(device)
+    ahla_train_launches = train_phase(device, mixer="ahla")
+    accum_remat_phase(device)
+    restart_phase(device)
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels.append(time_verify(device, "hla2", verify_abs,
                                cfg.n_layers * spec["ngram"]["rounds"]))
@@ -2106,6 +2424,7 @@ def main() -> int:
                                cfg.n_layers * ahla_spec["ngram"]["rounds"]))
     kernels += time_train_kernels(device, "ahla", ahla_bwd_abs, ahla_ckpt_abs,
                                   ahla_train_launches)
+    log(f"all phases passed in {time.perf_counter() - T0:.0f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

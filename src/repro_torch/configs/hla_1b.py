@@ -16,11 +16,12 @@ CONFIG = ModelConfig(
     vocab=50304,
     mixer="hla2",
     hla=HLAConfig(decay="learned"),
+    remat="full",
 )
 
 
 def reduced():
     return CONFIG.replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab=128,
-        dtype="float32",
+        remat="none", dtype="float32",
     )

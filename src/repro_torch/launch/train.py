@@ -1,26 +1,38 @@
-"""Training CLI: AdamW steps on the synthetic stream, on one device.
+"""Training CLI with fault tolerance, on one device (twin of
+``repro/launch/train.py`` without the mesh).
 
-Twin of ``repro/launch/train.py`` without the fault-tolerant loop (no
-checkpoints, restarts or fault injection yet).  Seeded random weights,
-data from the deterministic synthetic stream.  Runs on the card by default:
+AdamW steps on the deterministic synthetic stream from seeded random
+weights, through ``runtime.ft.FaultTolerantLoop``: exact microbatch
+accumulation (``--microbatches``), per-layer remat as the config says
+(hla-1b: ``remat="full"``), async checksummed checkpoints every
+``--ckpt-every`` steps into ``--ckpt-dir`` (keep 3), auto-resume from the
+latest of them, SIGTERM/SIGINT checkpoint-and-exit, a straggler and hang
+watchdog, and the loop's metrics, spans and events through one ``Obs``.
+Runs on the card by default:
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch hla-1b \
-        --steps 5 --batch 2 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hla-1b \\
+        --steps 5 --batch 2 --seq 2048 --ckpt-dir ckpt
 
-and on the CPU (plain versions of the kernels) with ``--device cpu``:
+and on the CPU (plain versions of the kernels) with ``--device cpu``.  A
+failure at step 9 and a run that resumes from the checkpoint of step 7:
 
-    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 12 --batch 4 --seq 32 --ckpt-every 4 \\
+        --ckpt-dir ckpt --fail-at-step 9
+    (rerun without --fail-at-step: "[ft] resumed from step 7")
 
-``--mixer ahla`` trains the same model with the AHLA mixer (its own
-forward and backward kernels, the same parameter layout).
+Without ``--ckpt-dir`` the run checkpoints into a temporary directory that
+is removed when it ends, so it never resumes.  ``--mixer ahla`` trains the
+same model with the AHLA mixer (its own kernels, the same parameter
+layout).
 """
 
 from __future__ import annotations
 
 import argparse
-import time
+import shutil
+import tempfile
 
-import numpy as np
 import torch
 
 from ..configs import get_config
@@ -28,7 +40,10 @@ from ..data.pipeline import DataConfig, SyntheticStream
 from ..distributed.steps import make_train_step
 from ..models import lm
 from ..models.param import init_params
+from ..obs import JsonlSink, Obs, profile_capture, write_metrics
 from ..optim import adamw
+from ..runtime.faults import FaultPlan, FaultSpec
+from ..runtime.ft import FaultTolerantLoop
 
 
 def main(argv=None):
@@ -40,9 +55,30 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (resumed from when it holds "
+                         "one); default: a temporary one, removed at exit")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data", default="zipf")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fail-at-step", type=int, default=None,
+                    help="inject a train.step fault at this step "
+                         "(runtime.faults; exercises restart/resume)")
+    ap.add_argument("--metrics", default=None,
+                    help="append one JSON line of metrics per step")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="dump the final metrics registry snapshot "
+                         "(repro.obs.metrics/v1 JSON) on exit")
+    ap.add_argument("--events-out", default=None, metavar="PATH",
+                    help="stream span/event records (repro.obs.events/v1 "
+                         "JSONL): train.step spans, ckpt.save spans, "
+                         "resume events, fired faults")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the whole run "
+                         "into DIR; profile.start/stop events on the obs "
+                         "stream carry matching wall-clock stamps")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced, mixer=args.mixer)
@@ -54,23 +90,47 @@ def main(argv=None):
     opt_cfg = adamw.OptConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 5))
     opt_state = adamw.init_opt_state(params)
-    step_fn = make_train_step(cfg, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, microbatches=args.microbatches)
     stream = SyntheticStream(DataConfig(cfg.vocab, args.seq, args.batch,
                                         seed=args.seed, kind=args.data))
-    step_s, tokens, loss = [], 0, float("nan")
-    for step in range(args.steps):
-        host = stream.batch(step)
-        t0 = time.perf_counter()
-        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])  # waits for the step's device work
-        step_s.append(time.perf_counter() - t0)
-        tokens += host["tokens"].size
-    p50, p99 = np.percentile(step_s, 50), np.percentile(step_s, 99)
-    print(f"[train] finished at step {args.steps} | step p50 {p50:.3f}s "
-          f"p99 {p99:.3f}s | {tokens / max(sum(step_s), 1e-9):.0f} tok/s | "
-          f"loss {loss:.4f}")
-    return params, opt_state, loss
+
+    def place(batch):
+        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+    faults = None
+    if args.fail_at_step is not None:
+        faults = FaultPlan(FaultSpec("train.step", at=args.fail_at_step))
+    obs = Obs()
+    sink = None
+    if args.events_out:
+        sink = JsonlSink(args.events_out)
+        obs.attach(sink)
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        loop = FaultTolerantLoop(
+            step_fn, stream, ckpt_dir, ckpt_every=args.ckpt_every,
+            metrics_path=args.metrics, faults=faults, place_batch=place,
+            obs=obs)
+        with profile_capture(args.profile_dir, obs=obs):
+            params, opt_state, last = loop.run(params, opt_state, args.steps)
+    finally:
+        if args.ckpt_dir is None:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    step_s = obs.registry.get("train_step_seconds")
+    p50 = step_s.quantile(0.5) or 0.0
+    p99 = step_s.quantile(0.99) or 0.0
+    toks = obs.registry.get("train_tokens_total").total()
+    total_s = step_s.sum() or 1e-9
+    print(f"[train] finished at step {last} | step p50 {p50:.3f}s "
+          f"p99 {p99:.3f}s | {toks / total_s:.0f} tok/s | "
+          f"loss {obs.registry.get('train_loss').value():.4f}")
+    if sink is not None:
+        sink.close()
+        print(f"[train] events -> {args.events_out}")
+    if args.metrics_out:
+        write_metrics(obs.snapshot(), args.metrics_out)
+        print(f"[train] metrics -> {args.metrics_out}")
+    return last
 
 
 if __name__ == "__main__":

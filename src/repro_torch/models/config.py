@@ -32,6 +32,16 @@ class ModelConfig:
     hla: HLAConfig = dataclasses.field(default_factory=HLAConfig)
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"  # activation/compute dtype; parameters are fp32
+    remat: str = "none"  # none | full (per-layer recompute in training)
+
+    def __post_init__(self):
+        if self.remat == "dots":
+            raise ValueError(
+                "remat='dots' (keep only the products' outputs) is not "
+                "ported yet; use 'none' or 'full'")
+        if self.remat not in ("none", "full"):
+            raise ValueError(f"remat must be 'none' or 'full', got "
+                             f"{self.remat!r}")
 
     @property
     def head_dim(self) -> int:

@@ -4,6 +4,8 @@ uniform-stack half of ``repro/models/lm.py``).
 Layer parameters are stacked (leading ``layers`` axis on every leaf, the
 reference's layout) and a Python loop over layers replaces ``lax.scan``.
 Decode states are the op's state tuple with every leaf ``(layers, B, ...)``.
+``cfg.remat == "full"`` recomputes each layer's activations in the
+backward pass of ``mode="train"`` (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import seq_op
 from .blocks import (
@@ -81,6 +84,17 @@ def _layer(tree, l: int):
     return tree[l]
 
 
+def _block(p, x, cfg, mix):
+    """One layer: ln1 -> mixer -> residual -> ln2 -> MLP -> residual.
+    ``mix(mixer_params, h)`` runs the mixer and returns ``(y, state)``.
+    Returns ``(x, state)``.  It is the unit ``remat="full"`` recomputes
+    (twin of the reference's ``_maybe_remat`` around its layer body)."""
+    y, st = mix(p["mixer"], rmsnorm_apply(p["ln1"], x, cfg.norm_eps))
+    x = x + y
+    x = x + mlp_apply(p["mlp"], rmsnorm_apply(p["ln2"], x, cfg.norm_eps))
+    return x, st
+
+
 def _trunk(params, tokens, cfg, states, mode):
     """Embed, run every layer, final norm.  Returns ``(hidden, states)``."""
     if mode not in MODES:
@@ -89,19 +103,22 @@ def _trunk(params, tokens, cfg, states, mode):
         raise ValueError("decode needs states")
     op = seq_op.op_for(cfg)
     x = embed_apply(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    # under remat a layer's activations are recomputed in backward
+    remat = (mode == "train" and cfg.remat == "full"
+             and torch.is_grad_enabled())
     new = []
     for l in range(cfg.n_layers):
         p = _layer(params["layers"], l)
         st = None if states is None else type(states)(*(s[l] for s in states))
-        h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
         if mode == "decode":
-            y, st = op.step(p["mixer"], h, st, cfg)
+            mix = lambda pm, h, st=st: op.step(pm, h, st, cfg)  # noqa: E731
         else:
-            y, st = op.forward(p["mixer"], h, cfg, state=st,
-                               want_state=mode == "prefill")
+            mix = lambda pm, h, st=st: op.forward(  # noqa: E731
+                pm, h, cfg, state=st, want_state=mode == "prefill")
+        x, st = checkpoint(_block, p, x, cfg, mix, use_reentrant=False) \
+            if remat else _block(p, x, cfg, mix)
+        if mode == "prefill":
             new.append(st)
-        x = x + y
-        x = x + mlp_apply(p["mlp"], rmsnorm_apply(p["ln2"], x, cfg.norm_eps))
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if mode == "train":
         return x, None

@@ -1,11 +1,10 @@
 """Unified fault injection: named, deterministic injection points.
 
 Own copy of ``repro/runtime/faults.py``, catalog whole.  One registry
-serves every failure domain in the stack.  In the port the serving
-engine, its prefix cache and its scheduler own their points; the owners
-of ``ckpt.save``, ``ckpt.corrupt`` and ``train.step`` (the checkpoint
-manager and the fault-tolerant training loop) are not ported yet, so
-those points are scheduled and parsed but nothing hits them.
+serves every failure domain in the stack: the serving engine, its prefix
+cache and its scheduler own the serving points; the checkpoint manager
+(``checkpoint/manager.py``) owns ``ckpt.save`` and ``ckpt.corrupt``, and
+the fault-tolerant training loop (``runtime/ft.py``) owns ``train.step``.
 
 A component that owns an injection point calls ``plan.hit(point)`` (or
 ``plan.raise_if(point)``) exactly once per occurrence of the event the

@@ -247,8 +247,9 @@ def _check_cli(capsys, *extra):
     train_cli.main(["--reduced", "--device", "cpu", "--steps", "3",
                     "--batch", "2", "--seq", "40", *extra])
     out = capsys.readouterr().out
+    # the summary names the last step's index (0-based), as the reference's
     assert re.search(
-        r"\[train\] finished at step 3 \| step p50 [\d.]+s p99 [\d.]+s \| "
+        r"\[train\] finished at step 2 \| step p50 [\d.]+s p99 [\d.]+s \| "
         r"\d+ tok/s \| loss \d+\.\d{4}", out), out
     return out
 
