@@ -75,6 +75,20 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    uninterrupted run's step-2 loss bit for bit, with no checksum failure;
    logs the save and restore seconds and GB/s (the checkpoint lives in a
    temporary directory, removed when the phase ends);
+10. (runs after phase 9) the main path's tooling, full hla-1b, either
+   mixer: (a) the four entry points' run-time contracts
+   (``repro_torch.analysis.contracts``: an admission's prefill, a decode
+   block, an accepting and a rejecting speculative round, a train step):
+   no fp64 op, every donated buffer (state pool, tokens; parameters and
+   moments) keeps its storage, 0 / 1 / 1 / 1 or 2 host transfers counted
+   both as calls and as the sync debug mode's warnings, no collective,
+   exactly the call's kernel launches, and one op sequence for three
+   prompt lengths of one 128-token bucket; (b) ``model_cost`` of prefill,
+   decode and the train step at phases 4 and 6's shapes and the
+   ``roofline_utilization`` of their measured tok/s against
+   ``device_peak``; (c) phase 6's peak memory with the in-place AdamW;
+   (d) ``examples/torch_quickstart.py`` and
+   ``examples/torch_long_context_decode.py`` in a subprocess, short;
 7. time each kernel and its plain version at its path's shapes (the step
    kernels also at 16 rows, one slot; the chunk forwards also at the
    verify shape, ``[verify]``).
@@ -705,7 +719,7 @@ def serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640), gen=64,
         chunk_share_of_prefill=sum(per_adm) / (1e3 * st["prefill_s"]),
         decode_tok_s=(st["generated_tokens"] - n_req) / st["decode_s"],
         prefill_tok_s=st["prompt_tokens"] / st["prefill_s"],
-        decode_steps=st["decode_steps"], peak_gib=peak,
+        decode_steps=st["decode_steps"], peak_gib=peak, slots=slots,
         streams=[r.tokens for r in results])
     log(f"served {n_req} requests with {cfg.mixer} (prompts "
         f"{lens[0]}-{lens[1]}, gen {gen}, {slots} slots, block {block}, "
@@ -1620,13 +1634,14 @@ def train(device, mixer="hla2", steps=5, batch=2, seq=2048, remat=None):
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, want {want}")
     return launches, dict(step_p50_s=p50, tok_s=batch * seq / p50,
-                          peak_gib=peak, losses=losses)
+                          peak_gib=peak, losses=losses, batch=batch, seq=seq)
 
 
 def train_phase(device, mixer="hla2"):
     """Phase 6 for one mixer: the config's remat run (the main path, whose
     launches the kernels line reports), then the same steps without remat,
-    to say what recomputing costs."""
+    to say what recomputing costs.  Returns the remat run's launches and
+    summary numbers."""
     launches, full = train(device, mixer)
     _, none = train(device, mixer, remat="none")
     log(f"remat cost ({mixer}): step p50 {full['step_p50_s']:.3f}s with "
@@ -1634,7 +1649,7 @@ def train_phase(device, mixer="hla2"):
         f"({full['step_p50_s'] / none['step_p50_s'] - 1:+.1%}); peak memory "
         f"{full['peak_gib']:.2f} GiB with, {none['peak_gib']:.2f} GiB "
         f"without; losses equal: {full['losses'] == none['losses']}")
-    return launches
+    return launches, full
 
 
 # --------------------------------------------------------------------------
@@ -1888,6 +1903,106 @@ def restart_phase(device, cfg=None, seq=2048, steps=3):
                              f"uninterrupted run's {want}")
     if crc:
         raise AssertionError("checksum failures on restore")
+
+
+# --------------------------------------------------------------------------
+# phase 10: the main path's tooling (runs after phase 9)
+# --------------------------------------------------------------------------
+
+
+EXAMPLES = (
+    ("examples/torch_quickstart.py", ["--steps", "30", "--batch", "8",
+                                      "--seq", "64"], "loss: "),
+    ("examples/torch_long_context_decode.py", ["--ctx", "512"],
+     "decode state never grew"),
+)
+
+
+def contracts_phase(device, mixer):
+    """(a) the four entry points' run-time contracts at full width."""
+    from repro_torch.analysis import contracts
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    reports = contracts.check_entry_points(
+        get_config("hla-1b", mixer=mixer), device=device)
+    for r in reports:
+        log(f"(a) contract {mixer} {contracts.format_report(r)}")
+    bad = {r.name: r.violations for r in reports if not r.ok}
+    if bad:
+        raise AssertionError(f"contracts violated ({mixer}): {bad}")
+    log(f"(a) {mixer}: every contract held ({time.perf_counter() - t0:.1f}s)")
+    return reports
+
+
+def utilization_phase(device, served, trained):
+    """(b) the analytic cost of each path at the shape it ran, and the
+    share of the card's peak its measured tok/s reaches: ``served`` and
+    ``trained`` map each mixer to phase 4's and phase 6's summaries."""
+    from repro_torch.configs import get_config
+    from repro_torch.obs.costs import model_cost
+    from repro_torch.obs.perf import device_peak, roofline_utilization
+
+    peak = device_peak(device)
+    log(f"(b) device_peak: {peak}")
+    rows = []
+    for mixer in ("hla2", "ahla"):
+        cfg = get_config("hla-1b", mixer=mixer)
+        s, t = served[mixer], trained[mixer]
+        paths = (
+            ("prefill", s["prefill_tok_s"],
+             dict(mode="prefill", seq_len=int(s["prompt_p50"]), batch=1)),
+            ("decode_step", s["decode_tok_s"],
+             dict(mode="decode_step", seq_len=int(s["prompt_p50"]),
+                  batch=s["slots"])),
+            ("train_step", t["tok_s"],
+             dict(mode="train_step", seq_len=t["seq"], batch=t["batch"])),
+        )
+        for name, tok_s, kw in paths:
+            cost = model_cost(cfg, **kw)
+            u = roofline_utilization(tok_s, cost, peak)
+            rows.append((mixer, name, u))
+            log(f"(b) {mixer} {name} {kw}: {cost.flops_per_token:.4e} "
+                f"FLOP/token, {cost.bytes_per_token:.4e} B/token; measured "
+                f"{tok_s:.1f} tok/s -> {u['achieved_flops_per_s'] / 1e12:.2f}"
+                f" TFLOP/s ({u['compute_util']:.2%} of "
+                f"{peak['flops_per_s'] / 1e12:.0f}), "
+                f"{u['achieved_bytes_per_s'] / 1e9:.1f} GB/s "
+                f"({u['memory_util']:.2%} of "
+                f"{peak['bytes_per_s'] / 1e12:.2f} TB/s); {u['bound']}-bound"
+                f", utilization {u['utilization']:.2%}")
+    return rows
+
+
+def examples_phase():
+    """(d) both examples on the card, each in its own interpreter."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for path, args, want in EXAMPLES:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / path), *args],
+                             cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=300)
+        lines = out.stdout.strip().splitlines()
+        log(f"(d) {path} {' '.join(args)}: exit {out.returncode} in "
+            f"{time.perf_counter() - t0:.1f}s; {' | '.join(lines[-4:])}")
+        if out.returncode != 0 or not any(want in x for x in lines):
+            raise AssertionError(f"{path} failed:\n{out.stdout}\n"
+                                 f"{out.stderr}")
+
+
+def tooling_phase(device, served, trained):
+    """Phase 10: (a) contracts, (b) utilization, (c) phase 6's peak, (d) the
+    examples."""
+    t0 = time.perf_counter()
+    for mixer in ("hla2", "ahla"):
+        contracts_phase(device, mixer)
+    utilization_phase(device, served, trained)
+    log("(c) phase 6 peak memory with the in-place AdamW: " + ", ".join(
+        f"{m} {t['peak_gib']:.2f} GiB" for m, t in trained.items()))
+    examples_phase()
+    log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
 
 
 # --------------------------------------------------------------------------
@@ -2409,10 +2524,12 @@ def main() -> int:
     frontend_phase(params, cfg, device, spec=True)
     frontend_phase(params, ahla_cfg, device)
     del params
-    train_launches = train_phase(device)
-    ahla_train_launches = train_phase(device, mixer="ahla")
+    train_launches, trained = train_phase(device)
+    ahla_train_launches, ahla_trained = train_phase(device, mixer="ahla")
     accum_remat_phase(device)
     restart_phase(device)
+    tooling_phase(device, {"hla2": plain, "ahla": ahla_plain},
+                  {"hla2": trained, "ahla": ahla_trained})
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels.append(time_verify(device, "hla2", verify_abs,
                                cfg.n_layers * spec["ngram"]["rounds"]))

@@ -15,7 +15,7 @@ CONFIG = ModelConfig(
     d_ff=5504,
     vocab=50304,
     mixer="hla2",
-    hla=HLAConfig(decay="learned"),
+    hla=HLAConfig(chunk=128, decay="learned"),
     remat="full",
 )
 

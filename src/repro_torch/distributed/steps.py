@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..models import lm
-from ..models.param import tree_map
+from ..models.param import leaf_paths, tree_map
 from ..optim import adamw
 
 
@@ -36,7 +36,10 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
         l, c = lm.lm_loss(live, tokens, labels, cfg, denom=n_valid)
         l.backward()
         loss, ce = loss + l.detach(), ce + c.detach()
-    return loss, ce, tree_map(lambda x: x.grad, live)
+    grads = tree_map(lambda x: x.grad, live)
+    for _, x in leaf_paths(live):
+        x.grad = None  # the returned dict holds the only reference
+    return loss, ce, grads
 
 
 def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
@@ -51,6 +54,12 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
     launches each forward kernel twice).  ``metrics`` holds the reference's
     keys: the scalar tensors ``loss``, ``ce`` and ``grad_norm``, the float
     ``lr`` and ``aux`` = 0.0 (the port's stack has no auxiliary loss).
+
+    The step **updates ``params`` and the moments in place** and returns
+    the same tensors (``adamw.adamw_update``): the reference's train step
+    donates both, so its outputs alias its inputs.  A caller that needs the
+    pre-step values copies them first.  The gradients are freed when the
+    step returns.
     """
 
     def train_step(params, opt_state, batch):

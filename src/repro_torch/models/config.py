@@ -1,7 +1,8 @@
 """Model configuration dataclasses: own copy of the reference's
-``HLAConfig``/``ModelConfig`` fields that the port reads.  The chunk width
-is not among them: the prefill kernel picks its own (``kernels.hla2_chunk.W``),
-and outputs do not depend on it."""
+``HLAConfig``/``ModelConfig`` fields that the port reads.  The kernels pick
+their own chunk width (``kernels.hla2_chunk.W``) and outputs do not depend
+on it; ``HLAConfig.chunk`` is the reference's, read only by the cost model
+(``obs/costs.py``) and the admission bucket (``analysis/contracts.py``)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import dataclasses
 class HLAConfig:
     """Options for the paper's mixer."""
 
+    chunk: int = 256  # the reference's chunk width (not the kernels')
     normalize: bool = False  # paper default: unnormalized
     decay: str = "learned"  # none | fixed | learned  (per-head sigmoid)
     fixed_gamma: float = 0.99

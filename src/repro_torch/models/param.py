@@ -44,6 +44,15 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def param_count(specs) -> int:
+    return sum(math.prod(s.shape) for _, s in leaf_paths(specs))
+
+
+def param_bytes(specs) -> int:
+    """Bytes of the parameters ``specs`` describe: every leaf is fp32."""
+    return 4 * param_count(specs)
+
+
 def _set(tree, path, value):
     node = tree
     for p in path[:-1]:

@@ -14,7 +14,7 @@ be snapshot and rolled back, so speculative decoding may verify over it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -26,6 +26,12 @@ class SequenceOp:
     init_state: Callable[..., Any]
     streaming: bool = False
     spec_decodable: bool = False
+    # optional analytic-cost override read by ``obs/costs.py``:
+    # ``cost_model(cfg, *, mode, seq_len, batch) -> dict`` may return
+    # ``state_flops_per_token`` and/or ``state_bytes_per_token`` to replace
+    # the family formula for this op's state math (projection FLOPs and
+    # state bytes always come from the record's specs and init_state)
+    cost_model: Optional[Callable[..., Dict[str, float]]] = None
 
 
 _REGISTRY: Dict[str, SequenceOp] = {}
@@ -38,11 +44,16 @@ def register_op(op: SequenceOp) -> SequenceOp:
     return op
 
 
-def op_for(cfg) -> SequenceOp:
-    """The registered operator ``cfg.mixer`` names."""
+def get_op(name: str) -> SequenceOp:
+    """The registered operator ``name``."""
     from . import mixer  # noqa: F401  (registers hla2 and ahla)
 
-    if cfg.mixer not in _REGISTRY:
-        raise KeyError(f"unknown sequence op {cfg.mixer!r}; registered ops: "
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown sequence op {name!r}; registered ops: "
                        f"{sorted(_REGISTRY)}")
-    return _REGISTRY[cfg.mixer]
+    return _REGISTRY[name]
+
+
+def op_for(cfg) -> SequenceOp:
+    """The registered operator ``cfg.mixer`` names."""
+    return get_op(cfg.mixer)

@@ -59,29 +59,42 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads, max_norm):
+    """Scales every leaf of ``grads`` **in place** so the global norm is at
+    most ``max_norm``; returns ``(grads, norm before clipping)``."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+    for _, g in leaf_paths(grads):
+        g.mul_(scale.to(g.dtype))
+    return grads, norm
 
 
 def adamw_update(params, grads, state: OptState, cfg: OptConfig):
-    """Returns ``(new_params, new_state, metrics)``; ``metrics`` holds the
-    step's learning rate and the gradient norm before clipping."""
+    """Returns ``(params, new_state, metrics)``; ``metrics`` holds the
+    step's learning rate and the gradient norm before clipping.
+
+    **Updates in place**, as the reference's train step donates its
+    parameters and moments: the leaves of ``params``, ``state.mu`` and
+    ``state.nu`` hold the new values when this returns (the same tensors,
+    in returned trees of the same dicts), and ``grads`` holds the clipped
+    gradients.  A caller that needs the pre-step values copies them first.
+    The elementwise operations and their order are the out-of-place
+    formula's (``b1 * m + (1 - b1) * g``, ...), so fp32 results are
+    bit-identical to it."""
     grads = tree_map(
         lambda g: g.to(torch.promote_types(g.dtype, torch.float32)), grads)
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     step = state.step + 1
     lr = cosine_lr(step, cfg)
     b1, b2 = cfg.betas
-    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-    nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
     bc1, bc2 = 1 - b1**step, 1 - b2**step
-
-    def upd(p, m, v):
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    for (_, p), (_, m), (_, v), (_, g) in zip(
+            leaf_paths(params), leaf_paths(state.mu), leaf_paths(state.nu),
+            leaf_paths(grads)):
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_(((1 - b2) * g).mul_(g))
+        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
         if cfg.weight_decay and p.dim() >= 2:  # no decay on 1-D leaves
-            delta = delta + cfg.weight_decay * p
-        return p - lr * delta
-
-    new_params = tree_map(upd, params, mu, nu)
-    return new_params, OptState(step, mu, nu), {"lr": lr, "grad_norm": gnorm}
+            delta.add_(cfg.weight_decay * p)
+        p.sub_(delta.mul_(lr))
+    return params, OptState(step, state.mu, state.nu), {
+        "lr": lr, "grad_norm": gnorm}

@@ -92,7 +92,9 @@ def _flatten(tree):
 
 def _leaf_bytes(leaf: torch.Tensor) -> np.ndarray:
     """The leaf's bytes as a flat uint8 view of its own (CPU) buffer."""
-    return leaf.detach().contiguous().reshape(-1).view(torch.uint8).numpy()
+    # a host tensor: entries are CPU tensors, so this moves nothing
+    return leaf.detach().contiguous().reshape(-1).view(  # noqa: RPR004
+        torch.uint8).numpy()
 
 
 def tree_bytes(tree) -> int:

@@ -79,7 +79,7 @@ from .sampling import SamplingConfig, sample
 from .scheduler import Scheduler, SchedulerConfig
 from .spec import SpecConfig, build_drafter
 from .spec.verify import make_spec_round
-from .state_pool import StatePool
+from .state_pool import StatePool, to_device
 
 #: ``Engine.stats`` keys -> unlabeled registry counters.  The reference's
 #: keys, and two of the port's: ``decode_steps`` (plain-block decode steps)
@@ -418,7 +418,7 @@ class Engine:
         with self.obs.span("engine.prefill", rid=req.rid, slot=slot,
                            prompt_len=L):
             self._raise_fault("engine.prefill")
-            ids = torch.as_tensor(prompt[None], device=self.device)
+            ids = to_device(prompt[None], self.device)
             done, carry = 0, None  # tokens already summarized into carry
             if self.cache is not None:
                 self._bind_faults()  # cache.corrupt may fire in lookup
@@ -469,7 +469,7 @@ class Engine:
             self._prefill_s_per_tok = rate if \
                 self._prefill_s_per_tok is None else (
                     0.9 * self._prefill_s_per_tok + 0.1 * rate)
-        self.tokens[slot, 0] = first_tok
+        self.tokens[slot, 0] = first  # on the device: no host value to upload
         self.active[slot] = True
         self._slot_req[slot] = req
         self._slot_out[slot] = []
@@ -636,11 +636,11 @@ class Engine:
         n_steps = self.block if n_steps is None else n_steps
         if n_steps <= 0:
             return
-        active = torch.as_tensor(self.active, device=self.device)
+        active = to_device(self.active, self.device)
         # one sampling call per DISTINCT config; each slot takes its own
         uniq = sorted(set(self._slot_scfg), key=repr)
-        sel = None if len(uniq) == 1 else torch.as_tensor(
-            [uniq.index(c) for c in self._slot_scfg], device=self.device)
+        sel = None if len(uniq) == 1 else to_device(
+            [uniq.index(c) for c in self._slot_scfg], self.device)
         t0 = time.perf_counter()
         with self.obs.span("engine.decode_block", steps=n_steps,
                            slots_active=int(self.active.sum())):
@@ -658,7 +658,7 @@ class Engine:
                     nxt = cand.gather(0, sel[None])[0]
                 tok = torch.where(active[:, None], nxt[:, None], tok)
                 steps.append(nxt)
-            self.tokens = tok
+            self.tokens.copy_(tok)  # in place: the block donates its tokens
             finite = self.pool.finite_mask()
             # sync-point: the once-per-block transfer (tokens + quarantine
             # flags); the span closes on it
@@ -764,16 +764,16 @@ class Engine:
         probs-emitting drafter, ``(slots, k, vocab)`` laws; rows of inactive
         slots are filler the round ignores (uniform laws)."""
         if self.drafter.full_width:
-            return torch.as_tensor(drafts, device=self.device), q
+            return to_device(drafts, self.device), q
         k, slots = self.spec.k, self.pool.slots
-        ids = torch.as_tensor(slots_active, device=self.device)
+        ids = to_device(slots_active, self.device)
         full = torch.zeros((slots, k), dtype=torch.long, device=self.device)
-        full[ids] = torch.as_tensor(drafts, device=self.device).long()
+        full[ids] = to_device(drafts, self.device).long()
         if q is not None:
             vocab = self.cfg.vocab
             q_full = torch.full((slots, k, vocab), 1.0 / vocab,
                                 device=self.device)
-            q_full[ids] = torch.as_tensor(q, device=self.device).float()
+            q_full[ids] = to_device(q, self.device).float()
             q = q_full
         return full, q
 
@@ -786,9 +786,10 @@ class Engine:
         in ``commit`` trips the breaker here but loses no verified token."""
         k = self.spec.k
         drafts, q = self._full_width(slots_active, drafts, q)
-        packed, finite, self.tokens, steps = self._spec_round_fn(
+        packed, finite, new_tokens, steps = self._spec_round_fn(
             self.params, self.pool, self.tokens, self.active, drafts,
             self.gen, q)
+        self.tokens.copy_(new_tokens)  # in place: the round donates them
         self._m_spec_rounds.inc()
         self._m_replay_steps.inc(steps)
         if steps:

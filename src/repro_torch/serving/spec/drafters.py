@@ -33,7 +33,7 @@ import torch
 from ...models import lm, seq_op
 from ...models.param import init_params
 from ..sampling import SamplingConfig, probs, sample
-from ..state_pool import StatePool
+from ..state_pool import StatePool, to_device
 from .verify import make_replay
 
 
@@ -174,7 +174,7 @@ class HLADrafter(Drafter):
     @torch.no_grad()
     def admit(self, slot, tokens):
         toks = [int(t) for t in tokens]
-        prompt = torch.as_tensor([toks[:-1]], device=self.device)
+        prompt = to_device([toks[:-1]], self.device)
         _, state = lm.lm_prefill(self.params, prompt, self.cfg)
         self.pool.write_slot(slot, state)
         self.stats["admissions"] += 1
@@ -207,12 +207,12 @@ class HLADrafter(Drafter):
         self._pending = [[] for _ in range(slots)]
         # 1) catch up with the last round's committed tokens, in the pool
         steps = self._consume(self.params, self.pool,
-                              torch.as_tensor(pending, device=self.device),
+                              to_device(pending, self.device),
                               pend_len)
         # 2) k draft steps on a copy of the pool: its states are dropped
         states = type(self.pool.states)(
             *(x.clone() for x in self.pool.states))
-        tok = torch.as_tensor(self.last[:, None], device=self.device)
+        tok = to_device(self.last[:, None], self.device)
         drafts, qs = [], []
         for _ in range(k):
             logits, _ = lm.lm_apply(self.params, tok, self.cfg,

@@ -38,8 +38,10 @@ in place, so there is no old value to select.  Instead:
 * verify leaves the pool as it was (the chunk kernels read their carry and
   write new tensors), so until the round writes it the pool IS the
   pre-verify state;
-* a round in which every active slot accepted its whole block swaps the
-  pool for the verify states (they consumed exactly the committed tokens);
+* a round in which every active slot accepted its whole block copies the
+  verify states into the pool (they consumed exactly the committed
+  tokens); the pool keeps its tensors, as the reference's round donates
+  them;
 * otherwise ``make_replay`` steps the whole pool through the block with
   the same decode steps plain decode runs, at the same batch width, and
   freezes each slot once its committed prefix is consumed: a copy of the
@@ -62,6 +64,7 @@ import torch
 
 from ...models import lm
 from ..sampling import SamplingConfig, draw, probs
+from ..state_pool import to_device
 
 
 def _leading_run(ok: torch.Tensor) -> torch.Tensor:
@@ -161,7 +164,8 @@ def make_spec_round(cfg, scfg: SamplingConfig, *, draft_probs: bool = False):
       committed token, inactive slots' as they were;
     * ``replay_steps``: decode steps the rollback ran (0 without one).
 
-    ``pool`` ends holding every slot's post-round state.  ``active`` is a
+    ``pool`` ends holding every slot's post-round state, in its own
+    tensors.  ``active`` is a
     host bool array; ``tokens (slots, 1)`` and ``drafts (slots, k)`` are on
     the pool's device.
     """
@@ -173,7 +177,7 @@ def make_spec_round(cfg, scfg: SamplingConfig, *, draft_probs: bool = False):
         tok_block = torch.cat([tokens, drafts.to(tokens.dtype)], 1)
         packed, ver_states = verify(params, pool.states, tok_block,
                                     generator, q)
-        active_dev = torch.as_tensor(active, device=tokens.device)
+        active_dev = to_device(active, tokens.device)
         last = packed.gather(1, packed[:, :1] + 1)
         new_tokens = torch.where(active_dev[:, None], last, tokens)
         finite = pool.finite_mask(ver_states)
@@ -182,7 +186,10 @@ def make_spec_round(cfg, scfg: SamplingConfig, *, draft_probs: bool = False):
         packed_h, finite_h = host[:, :-1], host[:, -1].astype(bool)
         n_comm = np.where(active, packed_h[:, 0] + 1, 0)
         if (n_comm[active] == k + 1).all():
-            pool.states = ver_states  # rollback is free: swap the pool
+            # no rollback: the verify states become the pool's, copied into
+            # its own tensors (the round donates the pool)
+            for dst, src in zip(pool.states, ver_states):
+                dst.copy_(src)
             return packed_h, finite_h, new_tokens, 0
         steps = replay(params, pool, tok_block, n_comm)
         # sync-point: a rejection round's second transfer (replayed health)

@@ -15,6 +15,18 @@ from typing import Any, Callable
 import torch
 
 
+def to_device(x, device) -> torch.Tensor:
+    """``x`` (a host array, a sequence or a tensor) as a tensor on
+    ``device``.  A host value bound for the card goes through pinned memory
+    and a non-blocking copy: a copy from pageable memory would make the host
+    wait for the device, a sync the serving path does not budget for."""
+    t = torch.as_tensor(x)
+    device = torch.device(device)
+    if t.device.type != "cpu" or device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class StatePool:
     """Owns the pooled decode states for ``slots`` concurrent requests.
     ``template_fn(n)`` builds the zero state tuple for ``n`` slots."""

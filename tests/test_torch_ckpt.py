@@ -300,6 +300,10 @@ def _ref_leaves(tree):
 def _third_step_agrees(ref_step, ref_state, step, port_state, host):
     r_params, _, r_m = ref_step(*ref_state,
                                 {k: jnp.asarray(v) for k, v in host.items()})
+    # on a copy: the step updates in place, and the fixture's state is shared
+    params, opt = port_state
+    port_state = (tree_map(torch.clone, params), adamw.OptState(
+        opt.step, tree_map(torch.clone, opt.mu), tree_map(torch.clone, opt.nu)))
     p_params, p_opt, m = step(*port_state,
                               {k: torch.from_numpy(v) for k, v in host.items()})
     assert p_opt.step == 3

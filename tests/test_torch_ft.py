@@ -317,6 +317,7 @@ def test_microbatches_match_reference(uneven):
                                 ref_adamw.init_opt_state(ref_params),
                                 {k: jnp.asarray(v) for k, v in host.items()})
     step = make_train_step(cfg, adamw.OptConfig(**oc), microbatches=4)
+    params = tree_map(torch.clone, params)  # the step updates in place
     p_params, _, m = step(params, adamw.init_opt_state(params),
                           {k: torch.from_numpy(v) for k, v in host.items()})
     assert m.keys() == r_m.keys()

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch/``, not
-``chip_smoke.py`` and not the port's card scripts under ``scripts/`` imports
-JAX or the reference package, and importing the
+``chip_smoke.py``, not the port's card scripts under ``scripts/`` and not
+its examples (``examples/torch_*.py``) imports JAX or the reference
+package, and importing the
 port builds no kernel (kernels build at their first CUDA launch)."""
 
 import ast
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py")) + \
+    sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

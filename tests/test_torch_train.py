@@ -133,8 +133,10 @@ def test_adamw_matches_reference_on_stacked_tree(rng):
                          params)
         r_params, r_state, r_m = ref_adamw.adamw_update(
             r_params, jax.tree.map(jnp.asarray, g), r_state, r_cfg)
+        # copies: the port's update clips its gradients in place
         p_params, p_state, p_m = adamw.adamw_update(
-            p_params, jax.tree.map(torch.from_numpy, g), p_state, p_cfg)
+            p_params, jax.tree.map(lambda x: torch.from_numpy(x.copy()), g),
+            p_state, p_cfg)
         assert abs(p_m["lr"] - float(r_m["lr"])) <= 1e-6 * float(r_m["lr"])
         assert _rel(p_m["grad_norm"], r_m["grad_norm"]) <= 1e-6
     assert p_state.step == int(r_state.step) == 3
@@ -165,6 +167,7 @@ def _check_three_steps(model, dtype=None):
         ref_cfg, cfg = ref_cfg.replace(dtype=dtype), cfg.replace(dtype=dtype)
         ref_params = jax.tree.map(lambda x: x.astype(dtype), ref_params)
         params = tree_map(lambda x: x.to(getattr(torch, dtype)), params)
+    params = tree_map(torch.clone, params)  # the step updates in place
     kw = dict(lr=1e-3, warmup_steps=1, total_steps=10)
     ref_step = ref_steps.make_train_step(ref_cfg, ref_adamw.OptConfig(**kw))
     step = make_train_step(cfg, adamw.OptConfig(**kw))
@@ -203,6 +206,7 @@ def _low_lr_losses(model, seq, steps=5):
     (``chip_smoke.py``'s train phase) on one repeated batch, reference and
     port from the same weights: ``(reference losses, port losses)``."""
     ref_cfg, ref_params, cfg, params = model
+    params = tree_map(torch.clone, params)  # the step updates in place
     kw = dict(lr=1e-5, warmup_steps=1, total_steps=steps)
     ref_step = ref_steps.make_train_step(ref_cfg, ref_adamw.OptConfig(**kw))
     step = make_train_step(cfg, adamw.OptConfig(**kw))
