@@ -89,6 +89,22 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    ``device_peak``; (c) phase 6's peak memory with the in-place AdamW;
    (d) ``examples/torch_quickstart.py`` and
    ``examples/torch_long_context_decode.py`` in a subprocess, short;
+11. (runs after phase 10) the rest of the HLA operator family, plain torch
+   (``hla3``, ``hla3_paper``, ``linattn``, and ``impl="scan"`` for HLA2 and
+   AHLA), which launches none of the six kernels: (a) at head_dim 128,
+   fp32, one row of 16 heads, chunkwise equals serial for the three at a
+   ragged n = 200 and the scan equals chunkwise for hla2 and ahla at n =
+   64; (b) full hla-1b, fp32, prefill(L) + one decode step equals
+   prefill(L + 1) for each of the three, and an ``impl="scan"`` HLA2
+   prefill of 64 tokens equals the kernel prefill (its decode step still
+   launches 24 ``hla2_step``); (c) phase 4's 8 requests in bf16 with each
+   of the three (TTFT, decode tok/s, peak memory logged), and ``hla3`` in
+   fp32: speculative greedy with the always-wrong drafter equals plain
+   greedy, and phase 8's requests through a prefix cache (every admission
+   a hit) equal their cold streams, an entry holding
+   ``state_bytes_for(cfg)`` bytes; (d) 3 AdamW steps of ``hla3`` at 2 x
+   2048 with the config's remat, bf16 activations: the loss falls.  Every
+   run's launch counts are zeroed before it and must read 0 after;
 7. time each kernel and its plain version at its path's shapes (the step
    kernels also at 16 rows, one slot; the chunk forwards also at the
    verify shape, ``[verify]``).
@@ -1531,7 +1547,7 @@ def frontend_phase(params, cfg, device, spec=False):
 
 
 # each mixer's training kernels: (module under repro_torch.kernels, forward,
-# backward)
+# backward); the plain records (phase 11) have none
 TRAIN_KERNELS = {"hla2": ("hla2_chunk", "hla2_chunk_fwd", "hla2_chunk_bwd"),
                  "ahla": ("ahla_chunk", "ahla_chunk_fwd", "ahla_chunk_bwd")}
 
@@ -1540,7 +1556,9 @@ def _want_train(cfg, steps=1, microbatches=1):
     """Each training kernel's launches over ``steps`` steps of ``cfg``: per
     layer and microbatch one forward and one backward, and under
     ``remat="full"`` the forward again when backward recomputes the
-    layer."""
+    layer.  A plain record launches none."""
+    if cfg.mixer not in TRAIN_KERNELS:
+        return {}
     _, fwd, bwd = TRAIN_KERNELS[cfg.mixer]
     passes = cfg.n_layers * steps * microbatches
     return {fwd: passes * (2 if cfg.remat == "full" else 1), bwd: passes}
@@ -1555,9 +1573,11 @@ def _count_train(device, cfg, fn):
 
     from repro_torch.kernels.ops import LAUNCHES
 
-    mod_name, fwd, bwd = TRAIN_KERNELS[cfg.mixer]
-    plain_calls, restore = _count_plain_calls(
-        [(mod_name, f"{fwd}_plain"), (mod_name, f"{bwd}_plain")])
+    plains = []
+    if cfg.mixer in TRAIN_KERNELS:
+        mod_name, fwd, bwd = TRAIN_KERNELS[cfg.mixer]
+        plains = [(mod_name, f"{fwd}_plain"), (mod_name, f"{bwd}_plain")]
+    plain_calls, restore = _count_plain_calls(plains)
     _sync(device)
     LAUNCHES.clear()  # count this path only
     try:
@@ -2003,6 +2023,248 @@ def tooling_phase(device, served, trained):
         f"{m} {t['peak_gib']:.2f} GiB" for m, t in trained.items()))
     examples_phase()
     log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
+
+
+# --------------------------------------------------------------------------
+# phase 11: the rest of the HLA operator family (runs after phase 10)
+# --------------------------------------------------------------------------
+
+
+#: the plain-torch records of the HLA family (no hand-written kernel)
+FAMILY = ("hla3", "hla3_paper", "linattn")
+
+
+def _no_launches(device, label, fn, allowed=None):
+    """``_run_counted(fn)``; on the card fails unless the launches equal
+    ``allowed`` (default none).  Returns ``(fn's result, launches)``."""
+    out, launches, _ = _run_counted(device, fn)
+    launches = {k: v for k, v in launches.items() if v}
+    if device.type == "cuda" and launches != (allowed or {}):
+        raise AssertionError(f"{label}: kernel launches {launches}, want "
+                             f"{allowed or {}}")
+    return out, launches
+
+
+def _linattn_serial(q, k, v, gamma, state):
+    """``linattn_step`` over every token (the core has no serial form)."""
+    import torch
+
+    from repro_torch.core.linear_attn import linattn_step
+
+    outs = []
+    for t in range(q.shape[-2]):
+        state, o = linattn_step(state, q[..., t, :], k[..., t, :],
+                                v[..., t, :], gamma)
+        outs.append(o)
+    return torch.stack(outs, -2), state
+
+
+def family_core_phase(device, d=128, heads=16, n=200, n_scan=64):
+    """(a) the core identities at head_dim ``d``, fp32, one row of
+    ``heads`` heads, hla-1b's initial decay sigmoid(3): chunkwise (chunk
+    128, so a ragged second chunk at ``n``) equals the serial recurrence
+    for ``linattn``, ``hla3`` (outputs and nested states) and
+    ``hla3_paper`` (Algorithm 3 against the chunk path, gamma = 1); the
+    token-level scan equals chunkwise for ``hla2`` and ``ahla`` at
+    ``n_scan``.  Within ``TOL_FP32``; no kernel launches."""
+    import torch
+
+    from repro_torch.core import ahla, hla2, hla3, linear_attn
+    from repro_torch.models.state_tree import leaves
+
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def qkv(m):
+        q, k, v, _ = _inputs(gen, heads, m, d, d, torch.float32, device)
+        return q[None], k[None], v[None]
+
+    gamma = torch.sigmoid(torch.full((1, heads), 3.0, device=device))
+    q, k, v = qkv(n)
+    qs, ks, vs = qkv(n_scan)
+    st0 = linear_attn.linattn_init_state((1, heads), d, d, device=device)
+    cases = {
+        f"linattn chunkwise vs serial, n {n}": (
+            linear_attn.linattn_chunkwise(q, k, v, gamma, chunk=128),
+            _linattn_serial(q, k, v, gamma, st0)),
+        f"hla3 chunkwise vs serial, n {n}": (
+            hla3.hla3_exact_chunkwise(q, k, v, gamma, chunk=128),
+            hla3.hla3_exact_serial(q, k, v, gamma)),
+        f"hla3_paper chunkwise vs Alg. 3 serial, n {n}": (
+            (hla3.hla3_paper_chunkwise(q, k, v, chunk=128)[0], None),
+            (hla3.hla3_paper_serial(q, k, v)[0], None)),
+        f"hla2 scan vs chunkwise, n {n_scan}": (
+            hla2.hla2_scan(qs, ks, vs, gamma),
+            hla2.hla2_chunkwise(qs, ks, vs, gamma, chunk=128)),
+        f"ahla scan vs chunkwise, n {n_scan}": (
+            ahla.ahla_scan(qs, ks, vs, gamma),
+            ahla.ahla_chunkwise(qs, ks, vs, gamma, chunk=128)),
+    }
+    for label, ((o, st), (o_w, st_w)) in cases.items():
+        pairs = [(o, o_w)] + ([] if st is None else
+                              list(zip(leaves(st), leaves(st_w))))
+        errs = [rel_err(a, b) for a, b in pairs]
+        finite = all(bool(a.isfinite().all()) for a, _ in pairs)
+        log(f"(a) {label}: output rel {errs[0]:.2e}, state leaves max rel "
+            f"{max(errs[1:], default=0.0):.2e} (tol {TOL_FP32:.0e})")
+        if not finite or max(errs) > TOL_FP32:
+            raise AssertionError(f"{label}: disagree or non-finite")
+
+
+def family_model_phase(params, cfg, device):
+    """(b) ``cfg`` (full-width hla-1b on the card) in fp32: prefill(L) +
+    one decode step equals prefill(L + 1) for each plain record (no kernel
+    launch); an ``impl="scan"`` HLA2 prefill of 64 tokens equals the kernel
+    prefill (no launch), and a decode step after it launches one
+    ``hla2_step`` per layer."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.state_tree import leaves
+
+    cfg = cfg.replace(dtype="float32")
+    for mixer in FAMILY:
+        _no_launches(device, f"identity {mixer}",
+                     lambda: check_identity(params, cfg.replace(mixer=mixer)))
+    scan_cfg = cfg.replace(hla=dataclasses.replace(cfg.hla, impl="scan"))
+    tok = torch.randint(2, cfg.vocab, (1, 65), device=device,
+                        generator=torch.Generator(device=device).manual_seed(5))
+    with torch.no_grad():
+        (scan, st), _ = _no_launches(
+            device, "scan prefill",
+            lambda: lm.lm_prefill(params, tok[:, :64], scan_cfg))
+        kern, st_k = lm.lm_prefill(params, tok[:, :64], cfg)
+        e = rel_err(scan, kern)
+        es = max(rel_err(a, b) for a, b in zip(leaves(st), leaves(st_k)))
+        # the decode step updates ``st`` in place
+        _, launches = _no_launches(
+            device, "decode after the scan prefill",
+            lambda: lm.lm_apply(params, tok[:, 64:], scan_cfg, states=st,
+                                mode="decode"),
+            allowed={"hla2_step": cfg.n_layers} if device.type == "cuda"
+            else None)
+    log(f"(b) {cfg.name} fp32 HLA2 impl=\"scan\" prefill of 64 tokens vs the "
+        f"kernel prefill: logits rel {e:.2e}, state leaves max rel {es:.2e} "
+        f"(tol {TOL_LOGITS:.0e}); a decode step after it launches "
+        f"{launches}")
+    if not e <= TOL_LOGITS or not es <= TOL_LOGITS:
+        raise AssertionError("scan prefill != kernel prefill")
+
+
+def family_serve(params, cfg, device, n_req=8, slots=4, lens=(256, 640),
+                 gen=64, block=8):
+    """(c) phase 4's requests with a plain record: all ``ok``, no kernel
+    launch.  Returns the summary numbers and streams."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import Engine, GenRequest
+
+    engine = Engine(cfg, params, slots=slots, max_len=lens[1] + gen + 8,
+                    block=block, seed=0, device=device)
+    reqs = serve_requests(cfg, n_req, lens, gen)
+    engine.run([GenRequest(rid=-1, prompt=reqs[0].prompt, max_new=block)])
+    engine.obs.reset()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    results, launches = _no_launches(device, f"serve {cfg.mixer}",
+                                     lambda: engine.run(reqs))
+    wall = time.perf_counter() - t0
+    bad = [(r.rid, r.status, len(r.tokens), r.error) for r in results
+           if r.status != "ok" or len(r.tokens) != gen]
+    if bad:
+        raise AssertionError(f"requests not served: {bad}")
+    st = engine.stats
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 \
+        if device.type == "cuda" else 0.0
+    out = dict(ttft_p50_ms=1e3 * float(np.percentile(st["ttft_s"], 50)),
+               decode_tok_s=(st["generated_tokens"] - n_req) / st["decode_s"],
+               prefill_tok_s=st["prompt_tokens"] / st["prefill_s"],
+               peak_gib=peak, streams=[r.tokens for r in results])
+    log(f"(c) served {n_req} requests with {cfg.mixer} (prompts "
+        f"{lens[0]}-{lens[1]}, gen {gen}, {slots} slots, block {block}, "
+        f"{cfg.dtype}) in {wall:.2f}s: TTFT p50 {out['ttft_p50_ms']:.1f} ms "
+        f"| decode {out['decode_tok_s']:.1f} tok/s | prefill "
+        f"{out['prefill_tok_s']:.1f} tok/s | peak memory {peak:.2f} GiB | "
+        f"{st['decode_steps']} decode steps | launches {launches}")
+    return out
+
+
+def family_exact_serving(params, cfg, device, n_req=4, gen=32):
+    """(c) ``cfg.mixer`` in fp32: speculative greedy with the always-wrong
+    drafter (every round rolls the nested state back) equals plain greedy
+    token for token; a second pass of the front-end requests through a
+    prefix cache (every admission a hit) equals the cold streams, and an
+    entry holds ``state_bytes_for(cfg)`` bytes.  No kernel launch."""
+    from repro_torch.serving import Engine, PrefixCache, state_bytes_for
+    from repro_torch.serving.spec import SpecConfig
+
+    cfg32 = cfg.replace(dtype="float32")
+    reqs = serve_requests(cfg32, n_req, (256, 640), gen)
+    kw = dict(slots=4, max_len=640 + gen + 8, block=8, seed=0, device=device)
+    plain = Engine(cfg32, params, **kw).run(reqs)
+    spec = Engine(cfg32, params, spec=SpecConfig(
+        k=SPEC_K, drafter=_wrong_drafter(), breaker_zero_rounds=2**31), **kw)
+    got, _ = _no_launches(device, f"spec {cfg.mixer}",
+                          lambda: spec.run(reqs))
+    st = spec.stats
+    parted = [r.rid for r, p in zip(got, plain) if r.tokens != p.tokens]
+    log(f"(c) {cfg.mixer} fp32 speculative greedy, always-wrong drafter, k "
+        f"{SPEC_K}: {n_req - len(parted)} of {n_req} streams equal plain "
+        f"greedy; {st['spec_rounds']} rounds, {st['spec_replays']} rolled "
+        f"back, {st['spec_replay_steps']} replay steps, breaker trips "
+        f"{st['breaker_trips']}")
+    if parted or st["spec_replays"] != st["spec_rounds"] or \
+            not st["spec_rounds"] or st["breaker_trips"]:
+        raise AssertionError(f"spec streams {parted} part from plain, or "
+                             "not every round rolled back")
+
+    fe = frontend_requests(cfg32, FE_SUFFIXES, gen)
+    fkw = dict(kw, max_len=FE_PREFIX + 256 + gen + 8)
+    cold = Engine(cfg32, params, **fkw).run(fe)
+    cache = PrefixCache(granularity=FE_CHUNK, budget_bytes=1 << 40)
+    warm = Engine(cfg32, params, cache=cache, **fkw)
+    warm.run(fe)  # fills the cache at each prompt's aligned boundary
+    warm.obs.reset()
+    got, _ = _no_launches(device, f"cache {cfg.mixer}", lambda: warm.run(fe))
+    hits = dict(sorted((e["rid"], e["cached_prefix"])
+                       for e in warm.obs.events("request.admitted")))
+    parted = [r.rid for r, c in zip(got, cold) if r.tokens != c.tokens]
+    entries, nbytes = int(cache.stats()["entries"]), int(cache.stats()["bytes"])
+    entry = nbytes // max(entries, 1)
+    log(f"(c) {cfg.mixer} fp32 prefix cache (granularity {FE_CHUNK}): hits "
+        f"(rid: prefix) {hits}; {len(fe) - len(parted)} of {len(fe)} hit "
+        f"streams equal cold; {entries} entries of {entry:,} bytes "
+        f"(state_bytes_for {state_bytes_for(cfg32):,})")
+    if parted or not all(hits.values()) or not entries or \
+            nbytes != entries * state_bytes_for(cfg32):
+        raise AssertionError(f"cache hit streams {parted} part from cold, a "
+                             "request missed, or an entry's bytes differ")
+    return entry
+
+
+def family_phase(device):
+    """Phase 11: (a) core identities, (b) full-width model identities and
+    the scan route, (c) serving with each plain record, (d) training
+    ``hla3``.  Returns the summary numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+
+    t0 = time.perf_counter()
+    family_core_phase(device)
+    cfg = get_config("hla-1b")
+    params = init_params(lm.lm_specs(cfg), 0, device)
+    family_model_phase(params, cfg, device)
+    served = {m: family_serve(params, cfg.replace(mixer=m), device)
+              for m in FAMILY}
+    entry = family_exact_serving(params, cfg.replace(mixer="hla3"), device)
+    del params
+    _, trained = train(device, mixer="hla3", steps=3)
+    log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
+    return dict(served=served, trained=trained, hla3_entry_bytes=entry)
 
 
 # --------------------------------------------------------------------------
@@ -2530,6 +2792,7 @@ def main() -> int:
     restart_phase(device)
     tooling_phase(device, {"hla2": plain, "ahla": ahla_plain},
                   {"hla2": trained, "ahla": ahla_trained})
+    family_phase(device)
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels.append(time_verify(device, "hla2", verify_abs,
                                cfg.n_layers * spec["ngram"]["rounds"]))

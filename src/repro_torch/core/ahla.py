@@ -5,15 +5,23 @@ PyTorch.
 
 Since A is lower-triangular, (A A) is already causal; the operator factors
 as two first-order passes, ``o = A (A V)``, i.e. ``LinAttn(q, k, LinAttn(q,
-k, v))``.  Twin of ``repro/core/ahla.py`` for the two forms the serving
-path needs: the streaming recurrence (``ahla_step``, Algorithm 2, decode)
-and the chunkwise form (``ahla_chunkwise``, prefill).
+k, v))``.  Twin of ``repro/core/ahla.py``:
+
+* ``ahla_naive``     -- the materialized oracle;
+* ``ahla_serial``    -- Algorithm 2 (``ahla_step``, the decode path) over
+                        every token;
+* ``ahla_scan``      -- a token-level associative scan with the Eq. (6.2)
+                        monoid on ``(R, P, m, E, n)`` (decay-corrected);
+* ``ahla_chunkwise`` -- two chunked linear-attention passes (prefill,
+                        training).
 
 The state carries, besides the streaming ``(P, m, E, n)`` of Algorithm 2,
-the *undecayed* cross moment ``R = sum_i k_i q_i^T`` that the reference's
-associative scan composes with (its decay erratum: the paper's decayed
-``R_B`` breaks associativity).  No output reads ``R``; the port keeps it
-leaf for leaf with the reference's ``AHLAState``.
+the *undecayed* cross moment ``R = sum_i k_i q_i^T`` that the scan
+composes with (decay erratum, mirroring HLA2's: the paper's decayed
+concatenation uses the decayed ``R_B`` in the cross terms, which breaks
+associativity; it is kept as ``ahla_op_decay_paper`` for the property
+test).  No output reads ``R``; the port keeps it leaf for leaf with the
+reference's ``AHLAState``.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels.chunk_math import decay_mats
+from ._scan import associative_scan
 from .hla2 import _compute_dtype, _gamma_arr
 from .linear_attn import LinAttnState, linattn_chunkwise
 
@@ -69,6 +79,109 @@ def ahla_step(state: AHLAState, q_t, k_t, v_t, gamma=None, *,
     return AHLAState(R, P, m, E, n), o
 
 
+def ahla_serial(q, k, v, gamma=None, *, normalize: bool = False,
+                eps: float = 1e-6, state: Optional[AHLAState] = None):
+    """Algorithm 2 over the whole sequence.  Returns ``(o, final_state)``,
+    ``o`` in ``v.dtype``."""
+    if state is None:
+        state = ahla_init_state(q.shape[:-2], q.shape[-1], v.shape[-1],
+                                _compute_dtype(q), q.device)
+    outs = []
+    for t in range(q.shape[-2]):
+        state, o = ahla_step(state, q[..., t, :], k[..., t, :], v[..., t, :],
+                             gamma, normalize=normalize, eps=eps)
+        outs.append(o)
+    return torch.stack(outs, -2).to(v.dtype), state
+
+
+def ahla_naive(q, k, v, gamma=None, *, normalize: bool = False,
+               eps: float = 1e-6):
+    """Oracle: ``o = A_g (A_g V)`` with ``A_g = (Q K^T) . L_gamma``
+    (Eq. 6.1)."""
+    dtype = _compute_dtype(q)
+    q, k, v32 = (x.to(dtype) for x in (q, k, v))
+    g = _gamma_arr(gamma, q.shape[:-2], dtype, q.device)
+    Lg, _, _ = decay_mats(q.shape[-2], g)
+    A = (q @ k.mT) * Lg
+    AA = A @ A
+    num = AA @ v32
+    if normalize:
+        num = num / (AA.sum(-1)[..., None] + eps)
+    return num.to(v.dtype)
+
+
+class AHLADecayState(NamedTuple):
+    R: torch.Tensor
+    P: torch.Tensor
+    m: torch.Tensor
+    E: torch.Tensor
+    n: torch.Tensor
+    rho: torch.Tensor  # (...,) segment attenuation gamma^len
+
+
+def ahla_op(a: AHLAState, b: AHLAState) -> AHLAState:
+    """Undecayed concatenation, Eq. (6.2): A then B."""
+    return AHLAState(
+        R=a.R + b.R, P=a.P + b.P, m=a.m + b.m,
+        E=a.E + b.E + b.R @ a.P,
+        n=a.n + b.n + (b.R @ a.m[..., None])[..., 0],
+    )
+
+
+def ahla_op_decay(a: AHLADecayState, b: AHLADecayState) -> AHLADecayState:
+    """Corrected decay-aware concatenation: ``R`` composes undecayed."""
+    rB, rBv = b.rho[..., None, None], b.rho[..., None]
+    return AHLADecayState(
+        R=a.R + b.R, P=rB * a.P + b.P, m=rBv * a.m + b.m,
+        E=rB * a.E + b.E + rB * (b.R @ a.P),
+        n=rBv * a.n + b.n + rBv * (b.R @ a.m[..., None])[..., 0],
+        rho=a.rho * b.rho,
+    )
+
+
+def ahla_op_decay_paper(a: AHLADecayState,
+                        b: AHLADecayState) -> AHLADecayState:
+    """The paper's printed decayed concatenation (Section 6.2), with the
+    decayed ``R``.  Not associative: kept for the erratum property test
+    only."""
+    rB, rBv = b.rho[..., None, None], b.rho[..., None]
+    return AHLADecayState(
+        R=rB * a.R + b.R, P=rB * a.P + b.P, m=rBv * a.m + b.m,
+        E=rB * a.E + b.E + b.R @ (rB * a.P),
+        n=rBv * a.n + b.n + (b.R @ (rBv * a.m)[..., None])[..., 0],
+        rho=a.rho * b.rho,
+    )
+
+
+def ahla_scan(q, k, v, gamma=None, *, normalize: bool = False,
+              eps: float = 1e-6, state: Optional[AHLAState] = None):
+    """Token-level associative scan under the corrected Eq. (6.2) monoid.
+    Returns ``(o, final_state)``, ``o`` in ``v.dtype``; a carry ``state``
+    is folded into every prefix with one more monoid application."""
+    dtype = _compute_dtype(q)
+    batch = q.shape[:-2]
+    n = q.shape[-2]
+    q32, k32, v32 = (x.to(dtype).movedim(-2, 0) for x in (q, k, v))
+    dP = k32[..., :, None] * v32[..., None, :]
+    # a one-token segment: E = k (q^T P_incl) = (q.k) k v^T, n likewise
+    qk = (q32 * k32).sum(-1)
+    g = _gamma_arr(gamma, batch, dtype, q.device).expand((n,) + batch)
+    elems = AHLADecayState(k32[..., :, None] * q32[..., None, :], dP, k32,
+                           qk[..., None, None] * dP, qk[..., None] * k32, g)
+    R, P, m, E, nn, _ = associative_scan(ahla_op_decay, elems)
+    if state is not None:
+        a = AHLADecayState(*(x.to(dtype) for x in state),
+                           rho=torch.ones(batch, dtype=dtype,
+                                          device=q.device))
+        R, P, m, E, nn, _ = ahla_op_decay(
+            a, AHLADecayState(R, P, m, E, nn, torch.cumprod(g, 0)))
+    o = (q32[..., None, :] @ E)[..., 0, :]
+    if normalize:
+        o = o / ((q32 * nn).sum(-1)[..., None] + eps)
+    return (o.movedim(0, -2).to(v.dtype),
+            AHLAState(R[-1], P[-1], m[-1], E[-1], nn[-1]))
+
+
 def ahla_chunkwise(q, k, v, gamma=None, *, chunk: int = 64,
                    normalize: bool = False, eps: float = 1e-6,
                    state: Optional[AHLAState] = None):
@@ -102,3 +215,20 @@ def ahla_chunkwise(q, k, v, gamma=None, *, chunk: int = 64,
     return o.to(v.dtype), AHLAState(
         R, inner.P[..., :dv], inner.P[..., dv], outer.P[..., :dv],
         outer.P[..., dv])
+
+
+def ahla(q, k, v, gamma=None, *, impl: str = "chunkwise", chunk: int = 64,
+         normalize: bool = False, eps: float = 1e-6,
+         state: Optional[AHLAState] = None):
+    """Dispatch front end.  Returns ``(o, final_state)`` (None for
+    ``naive``)."""
+    kw = dict(normalize=normalize, eps=eps)
+    if impl == "chunkwise":
+        return ahla_chunkwise(q, k, v, gamma, chunk=chunk, state=state, **kw)
+    if impl == "scan":
+        return ahla_scan(q, k, v, gamma, state=state, **kw)
+    if impl == "serial":
+        return ahla_serial(q, k, v, gamma, state=state, **kw)
+    if impl == "naive":
+        return ahla_naive(q, k, v, gamma, **kw), None
+    raise ValueError(f"unknown impl {impl!r}")

@@ -1,7 +1,9 @@
 """First-order (identity feature map) linear attention, in PyTorch.
 
-Twin of the parts of ``repro/core/linear_attn.py`` that AHLA builds on
-(AHLA = LinAttn o LinAttn, ``core/ahla.py``):
+Twin of ``repro/core/linear_attn.py``: the Section 2.2 baseline (the
+``linattn`` record), and the inner pass of AHLA (= LinAttn o LinAttn,
+``core/ahla.py``) and of the exact third order (= HLA2 o LinAttn,
+``core/hla3.py``):
 
     o_t = sum_{j<=t} gamma^(t-j) (q_t . k_j) v_j      (masked, decayed)
 
@@ -47,6 +49,20 @@ def linattn_step(state: LinAttnState, q_t, k_t, v_t, gamma=None, *,
     return LinAttnState(P, m), o
 
 
+def linattn_naive(q, k, v, gamma=None, *, normalize: bool = False,
+                  eps: float = 1e-6):
+    """Materialized oracle: ``o = ((Q K^T) . L_gamma) V``."""
+    dtype = _compute_dtype(q)
+    q, k, v32 = (x.to(dtype) for x in (q, k, v))
+    g = _gamma_arr(gamma, q.shape[:-2], dtype, q.device)
+    Lg, _, _ = decay_mats(q.shape[-2], g)
+    A = (q @ k.mT) * Lg
+    num = A @ v32
+    if normalize:
+        num = num / (A.sum(-1)[..., None] + eps)
+    return num.to(v.dtype)
+
+
 def linattn_chunkwise(q, k, v, gamma=None, *, chunk: int = 64,
                       normalize: bool = False, eps: float = 1e-6,
                       state: Optional[LinAttnState] = None):
@@ -86,3 +102,17 @@ def linattn_chunkwise(q, k, v, gamma=None, *, chunk: int = 64,
         P = rho[..., None, None] * P + Kg.mT @ V
         m = rho[..., None] * m + Kg.sum(-2)
     return torch.cat(outs, -2).to(v.dtype), LinAttnState(P, m)
+
+
+def linattn(q, k, v, gamma=None, *, impl: str = "chunkwise", chunk: int = 64,
+            normalize: bool = False, eps: float = 1e-6,
+            state: Optional[LinAttnState] = None):
+    """Dispatch front end.  Returns ``(o, final_state)`` (None for
+    ``naive``)."""
+    if impl == "chunkwise":
+        return linattn_chunkwise(q, k, v, gamma, chunk=chunk,
+                                 normalize=normalize, eps=eps, state=state)
+    if impl == "naive":
+        return linattn_naive(q, k, v, gamma, normalize=normalize,
+                             eps=eps), None
+    raise ValueError(f"unknown impl {impl!r}")

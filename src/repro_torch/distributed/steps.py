@@ -21,7 +21,8 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
     labels are masked.  Each part's backward adds into the leaves' ``.grad``
     (autograd's own accumulation), so one gradient set is live beside a
     part's activations.  ``grads`` (a dict like ``params``) has the
-    parameters' dtype, fp32; ``loss`` and ``ce`` are sums over the parts.
+    parameters' dtype, fp32 (zeros for a leaf the loss does not reach);
+    ``loss`` and ``ce`` are sums over the parts.
     """
     B = batch["tokens"].shape[0]
     if microbatches < 1 or B % microbatches:
@@ -36,7 +37,10 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
         l, c = lm.lm_loss(live, tokens, labels, cfg, denom=n_valid)
         l.backward()
         loss, ce = loss + l.detach(), ce + c.detach()
-    grads = tree_map(lambda x: x.grad, live)
+    # a leaf the loss does not reach (hla3_paper's decay_a) gets zeros, as
+    # jax.grad gives it
+    grads = tree_map(
+        lambda x: torch.zeros_like(x) if x.grad is None else x.grad, live)
     for _, x in leaf_paths(live):
         x.grad = None  # the returned dict holds the only reference
     return loss, ce, grads

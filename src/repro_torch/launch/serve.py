@@ -12,7 +12,8 @@ and on the CPU (plain versions of the kernels) with ``--device cpu``:
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 ``--mixer ahla`` swaps the arch's sequence op for AHLA (same weights
-layout, its own kernels).  ``--spec ngram`` (prompt lookup) or ``--spec lm``
+layout, its own kernels); ``--mixer hla3``, ``hla3_paper`` or ``linattn``
+for the rest of the HLA family (same weights layout, plain torch).  ``--spec ngram`` (prompt lookup) or ``--spec lm``
 (a draft LM: ``--draft-arch``, reduced, random weights, the target's
 vocabulary) decodes speculatively, ``--spec-k`` draft tokens a round.
 
@@ -51,7 +52,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..models import lm
+from ..models import lm, seq_op
 from ..models.param import init_params
 from ..obs import JsonlSink, Obs, profile_capture, write_metrics
 from ..runtime.faults import FaultPlan, parse_fault
@@ -83,9 +84,10 @@ def _run_streaming(engine, requests):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="hla-1b")
-    ap.add_argument("--mixer", default=None,
+    ops = seq_op.registered_op_names()
+    ap.add_argument("--mixer", default=None, choices=ops,
                     help="override the arch's sequence op with a registered "
-                         "one (hla2, ahla)")
+                         f"one ({', '.join(ops)})")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)

@@ -24,7 +24,8 @@ failure at step 9 and a run that resumes from the checkpoint of step 7:
 Without ``--ckpt-dir`` the run checkpoints into a temporary directory that
 is removed when it ends, so it never resumes.  ``--mixer ahla`` trains the
 same model with the AHLA mixer (its own kernels, the same parameter
-layout).
+layout); ``--mixer hla3``, ``hla3_paper`` or ``linattn`` with the rest of
+the HLA family (plain torch, the same parameter layout).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch
 from ..configs import get_config
 from ..data.pipeline import DataConfig, SyntheticStream
 from ..distributed.steps import make_train_step
-from ..models import lm
+from ..models import lm, seq_op
 from ..models.param import init_params
 from ..obs import JsonlSink, Obs, profile_capture, write_metrics
 from ..optim import adamw
@@ -49,7 +50,10 @@ from ..runtime.ft import FaultTolerantLoop
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="hla-1b")
-    ap.add_argument("--mixer", default=None)
+    ops = seq_op.registered_op_names()
+    ap.add_argument("--mixer", default=None, choices=ops,
+                    help="override the arch's sequence op with a registered "
+                         f"one ({', '.join(ops)})")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

@@ -1,8 +1,10 @@
 """Model configuration dataclasses: own copy of the reference's
-``HLAConfig``/``ModelConfig`` fields that the port reads.  The kernels pick
-their own chunk width (``kernels.hla2_chunk.W``) and outputs do not depend
-on it; ``HLAConfig.chunk`` is the reference's, read only by the cost model
-(``obs/costs.py``) and the admission bucket (``analysis/contracts.py``)."""
+``HLAConfig``/``ModelConfig`` fields that the port reads.  The hla2/ahla
+kernels pick their own chunk width (``kernels.hla2_chunk.W``) and outputs
+do not depend on it; ``HLAConfig.chunk`` is the reference's, the chunk
+width of the plain records (``hla3``, ``hla3_paper``, ``linattn``), and
+read by the cost model (``obs/costs.py``) and the admission bucket
+(``analysis/contracts.py``)."""
 
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ import dataclasses
 class HLAConfig:
     """Options for the paper's mixer."""
 
-    chunk: int = 256  # the reference's chunk width (not the kernels')
+    impl: str = "chunkwise"  # chunkwise | scan (hla2/ahla: the paper's
+    #   token-level associative scan in plain torch; decode is unchanged)
+    chunk: int = 256  # the plain records' chunk width (not the kernels')
     normalize: bool = False  # paper default: unnormalized
     decay: str = "learned"  # none | fixed | learned  (per-head sigmoid)
     fixed_gamma: float = 0.99

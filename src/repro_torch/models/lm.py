@@ -3,7 +3,8 @@ uniform-stack half of ``repro/models/lm.py``).
 
 Layer parameters are stacked (leading ``layers`` axis on every leaf, the
 reference's layout) and a Python loop over layers replaces ``lax.scan``.
-Decode states are the op's state tuple with every leaf ``(layers, B, ...)``.
+Decode states are the op's state tree (``state_tree``: flat for hla2/ahla,
+nested for hla3) with every leaf ``(layers, B, ...)``.
 ``cfg.remat == "full"`` recomputes each layer's activations in the
 backward pass of ``mode="train"`` (``torch.utils.checkpoint``).
 """
@@ -26,6 +27,7 @@ from .blocks import (
     rmsnorm_specs,
 )
 from .param import Spec, leaf_paths
+from .state_tree import tree_map
 
 MODES = ("train", "prefill", "decode")
 
@@ -35,7 +37,7 @@ def layer_specs(cfg):
     return {
         "ln1": rmsnorm_specs(cfg.d_model),
         "ln2": rmsnorm_specs(cfg.d_model),
-        "mixer": op.specs(cfg),
+        op.param_key: op.specs(cfg),
         "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
     }
 
@@ -74,8 +76,8 @@ def cast_params(params, cfg):
 def lm_init_states(cfg, B: int, device):
     """Zero decode states, every leaf ``(layers, B, ...)``."""
     one = seq_op.op_for(cfg).init_state(cfg, B, device)
-    return type(one)(*(
-        x.expand((cfg.n_layers,) + x.shape).clone() for x in one))
+    return tree_map(lambda x: x.expand((cfg.n_layers,) + x.shape).clone(),
+                    one)
 
 
 def _layer(tree, l: int):
@@ -86,10 +88,11 @@ def _layer(tree, l: int):
 
 def _block(p, x, cfg, mix):
     """One layer: ln1 -> mixer -> residual -> ln2 -> MLP -> residual.
-    ``mix(mixer_params, h)`` runs the mixer and returns ``(y, state)``.
-    Returns ``(x, state)``.  It is the unit ``remat="full"`` recomputes
-    (twin of the reference's ``_maybe_remat`` around its layer body)."""
-    y, st = mix(p["mixer"], rmsnorm_apply(p["ln1"], x, cfg.norm_eps))
+    ``mix(layer_params, h)`` runs the mixer on its own params (the record's
+    ``param_key``) and returns ``(y, state)``.  Returns ``(x, state)``.  It
+    is the unit ``remat="full"`` recomputes (twin of the reference's
+    ``_maybe_remat`` around its layer body)."""
+    y, st = mix(p, rmsnorm_apply(p["ln1"], x, cfg.norm_eps))
     x = x + y
     x = x + mlp_apply(p["mlp"], rmsnorm_apply(p["ln2"], x, cfg.norm_eps))
     return x, st
@@ -109,12 +112,14 @@ def _trunk(params, tokens, cfg, states, mode):
     new = []
     for l in range(cfg.n_layers):
         p = _layer(params["layers"], l)
-        st = None if states is None else type(states)(*(s[l] for s in states))
+        st = None if states is None else tree_map(lambda s: s[l], states)
         if mode == "decode":
-            mix = lambda pm, h, st=st: op.step(pm, h, st, cfg)  # noqa: E731
+            mix = lambda pl, h, st=st: op.step(  # noqa: E731
+                pl[op.param_key], h, st, cfg)
         else:
-            mix = lambda pm, h, st=st: op.forward(  # noqa: E731
-                pm, h, cfg, state=st, want_state=mode == "prefill")
+            mix = lambda pl, h, st=st: op.forward(  # noqa: E731
+                pl[op.param_key], h, cfg, state=st,
+                want_state=mode == "prefill")
         x, st = checkpoint(_block, p, x, cfg, mix, use_reentrant=False) \
             if remat else _block(p, x, cfg, mix)
         if mode == "prefill":
@@ -124,7 +129,7 @@ def _trunk(params, tokens, cfg, states, mode):
         return x, None
     if mode == "decode":
         return x, states  # updated in place, layer by layer
-    return x, type(new[0])(*(torch.stack(leaf) for leaf in zip(*new)))
+    return x, tree_map(lambda *per_layer: torch.stack(per_layer), *new)
 
 
 def _unembed(params, x):

@@ -1,30 +1,61 @@
-"""The HLA mixer sublayers: the ``hla2`` and ``ahla`` records of
-``repro/models/mixer.py``.
+"""The HLA mixer sublayers: the ``hla2``, ``ahla``, ``hla3``,
+``hla3_paper`` and ``linattn`` records of ``repro/models/mixer.py``.
 
-Multi-head projections around the operator's kernels: q scaled by
+Multi-head projections around the operator's core: q scaled by
 ``head_dim**-0.5``, K/V heads repeated to the query heads (GQA), per-head
 decay ``gamma = sigmoid(decay_a)`` (or fixed, or none), and a per-head RMS
-output norm with a learned ``out_scale``.  Both records share that wrapper
+output norm with a learned ``out_scale``.  Every record shares that wrapper
 (``_sublayer_forward``, ``_sublayer_step``) and the parameter layout, and
-differ only in their core calls.  The full-sequence path is one
-chunk-parallel kernel launch per call: stateless for training
+differs only in its core calls.
+
+``hla2`` and ``ahla`` run hand-written kernels.  The full-sequence path is
+one chunk-parallel kernel launch per call: stateless for training
 (``kernels.ops.hla2_attention``, ``ahla_attention``: one forward launch
 with chunk checkpoints, then one backward launch), or returning the carry
 for prefill (``hla2_prefill``, ``ahla_prefill``); the one-token path one
 batched decode-step launch that updates the state in place
-(``hla2_decode_step``, ``ahla_decode_step``).
+(``hla2_decode_step``, ``ahla_decode_step``).  With ``cfg.hla.impl ==
+"scan"`` their full-sequence path is the paper's token-level associative
+scan in plain torch (``hla2_scan``, ``ahla_scan``); decode stays the
+kernel, as in the reference.
+
+``hla3`` (the exact third order), ``hla3_paper`` (Algorithm 4's chunk
+path, at gamma = 1 whatever ``cfg.hla.decay`` says: its ``decay_a`` goes
+unused) and ``linattn`` are plain torch at ``cfg.hla.chunk``, as the
+reference's are plain jnp.  Their steps are functional; the shared step
+wrapper writes the new state into the caller's tensors, since decode
+updates states in place.
+
+The core functions are imported by name: ``repro_torch.core`` does not
+re-export the front ends ``hla2``/``ahla``/``hla3``, so no submodule is
+shadowed (the reference binds its submodules through ``importlib`` for
+that reason).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.ahla import ahla_init_state
-from ..core.hla2 import hla2_init_state
+from ..core.ahla import ahla_init_state, ahla_scan
+from ..core.hla2 import hla2_init_state, hla2_scan
+from ..core.hla3 import (
+    hla3_chunk_init_state,
+    hla3_exact_chunkwise,
+    hla3_exact_init_state,
+    hla3_exact_step,
+    hla3_paper_chunk_step,
+    hla3_paper_chunkwise,
+)
+from ..core.linear_attn import (
+    linattn_chunkwise,
+    linattn_init_state,
+    linattn_step,
+)
 from ..kernels import ops as kops
 from . import seq_op
 from .blocks import dense_apply, dense_specs
 from .param import Spec
+from .state_tree import leaves
 
 OUT_NORM_EPS = 1e-6
 HLA_EPS = 1e-6
@@ -99,8 +130,11 @@ def _sublayer_step(core_step):
         updated in place.  Returns ``(y, state)``."""
         B = x_t.shape[0]
         q, k, v = _project(p, x_t, cfg)
-        state, o = core_step(state, q[:, :, 0], k[:, :, 0], v[:, :, 0],
-                             _gamma(p, cfg, B, x_t.device), cfg.hla)
+        new, o = core_step(state, q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                           _gamma(p, cfg, B, x_t.device), cfg.hla)
+        if new is not state:  # a functional core step: write its result
+            for dst, src in zip(leaves(state), leaves(new)):
+                dst.copy_(src)
         o = _out_norm(p, o[:, :, None, :].to(x_t.dtype))
         o = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.head_dim)
         return dense_apply(p["wo"], o), state
@@ -110,6 +144,8 @@ def _sublayer_step(core_step):
 
 def _hla2_fwd(q, k, v, gamma, hc, *, state, want_state):
     kw = dict(normalize=hc.normalize, eps=HLA_EPS, lam=hc.lam)
+    if hc.impl == "scan":  # the paper's token-level associative scan
+        return hla2_scan(q, k, v, gamma, state=state, **kw)
     if want_state:
         return kops.hla2_prefill(q, k, v, gamma, state=state, **kw)
     return kops.hla2_attention(q, k, v, gamma, **kw), None
@@ -123,6 +159,8 @@ def _hla2_step(state, q1, k1, v1, gamma, hc):
 
 def _ahla_fwd(q, k, v, gamma, hc, *, state, want_state):
     kw = dict(normalize=hc.normalize, eps=HLA_EPS)
+    if hc.impl == "scan":
+        return ahla_scan(q, k, v, gamma, state=state, **kw)
     if want_state:
         return kops.ahla_prefill(q, k, v, gamma, state=state, **kw)
     return kops.ahla_attention(q, k, v, gamma, **kw), None
@@ -133,7 +171,40 @@ def _ahla_step(state, q1, k1, v1, gamma, hc):
                                  normalize=hc.normalize, eps=HLA_EPS)
 
 
-def _register(name, core_fwd, core_step, core_init):
+def _hla3_fwd(q, k, v, gamma, hc, *, state, want_state):
+    return hla3_exact_chunkwise(q, k, v, gamma, chunk=hc.chunk,
+                                normalize=hc.normalize, eps=HLA_EPS,
+                                state=state)
+
+
+def _hla3_step(state, q1, k1, v1, gamma, hc):
+    return hla3_exact_step(state, q1, k1, v1, gamma, normalize=hc.normalize,
+                           eps=HLA_EPS)
+
+
+def _hla3_paper_fwd(q, k, v, gamma, hc, *, state, want_state):
+    return hla3_paper_chunkwise(q, k, v, chunk=hc.chunk,
+                                normalize=hc.normalize, eps=HLA_EPS,
+                                state=state)
+
+
+def _hla3_paper_step(state, q1, k1, v1, gamma, hc):
+    # an n = 1 chunkwise call: the prefill's state layout and its gamma = 1
+    return hla3_paper_chunk_step(state, q1, k1, v1, normalize=hc.normalize,
+                                 eps=HLA_EPS)
+
+
+def _linattn_fwd(q, k, v, gamma, hc, *, state, want_state):
+    return linattn_chunkwise(q, k, v, gamma, chunk=hc.chunk,
+                             normalize=hc.normalize, eps=HLA_EPS, state=state)
+
+
+def _linattn_step(state, q1, k1, v1, gamma, hc):
+    return linattn_step(state, q1, k1, v1, gamma, normalize=hc.normalize,
+                        eps=HLA_EPS)
+
+
+def _register(name, core_fwd, core_step, core_init, fused=False):
     def init_state(cfg, B, device):
         dh = cfg.head_dim
         return core_init((B, cfg.n_heads), dh, dh, torch.float32, device)
@@ -141,9 +212,17 @@ def _register(name, core_fwd, core_step, core_init):
     seq_op.register_op(seq_op.SequenceOp(
         name=name, specs=mixer_specs, forward=_sublayer_forward(core_fwd),
         step=_sublayer_step(core_step), init_state=init_state,
-        streaming=True, spec_decodable=True,
+        streaming=True, has_fused_kernels=fused, spec_decodable=True,
+        param_key="mixer",
     ))
 
 
-_register("hla2", _hla2_fwd, _hla2_step, hla2_init_state)
-_register("ahla", _ahla_fwd, _ahla_step, ahla_init_state)
+_register("hla2", _hla2_fwd, _hla2_step, hla2_init_state, fused=True)
+_register("ahla", _ahla_fwd, _ahla_step, ahla_init_state, fused=True)
+_register("hla3", _hla3_fwd, _hla3_step, hla3_exact_init_state)
+# the chunk-state layout: prefill (hla3_paper_chunkwise) and decode
+# (hla3_paper_chunk_step) share it; Algorithm 3's 10-field state serves
+# only the serial path
+_register("hla3_paper", _hla3_paper_fwd, _hla3_paper_step,
+          hla3_chunk_init_state)
+_register("linattn", _linattn_fwd, _linattn_step, linattn_init_state)

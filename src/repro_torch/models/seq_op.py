@@ -1,20 +1,35 @@
 """The ``SequenceOp`` registry: one record per sequence-mixing operator.
 
-Minimal twin of ``repro/models/seq_op.py``: a record carries the sublayer's
+Twin of ``repro/models/seq_op.py``.  A record carries the sublayer's
 ``specs``, full-sequence ``forward`` (train / chunk-parallel prefill),
-one-token ``step`` (decode) and ``init_state``; ``lm.py`` and the serving
-engine program against the record only, and a layer keeps the record's
-parameters under ``"mixer"``.  The port registers ``hla2`` and ``ahla``
-(``models/mixer.py``).  Of the reference's capability flags it keeps the two
-the serving engine reads: ``streaming`` (a constant-size per-slot decode
-state, so slots batch continuously) and ``spec_decodable`` (that state can
-be snapshot and rolled back, so speculative decoding may verify over it).
+one-token ``step`` (decode) and ``init_state``; ``lm.py``, the serving
+engine and the cost model program against the record only, and a layer
+keeps the record's parameters under its ``param_key``.  State trees are
+whatever ``init_state`` returns (``models/state_tree.py`` walks them).
+The port registers the HLA family, ``hla2``, ``ahla``, ``hla3``,
+``hla3_paper`` and ``linattn`` (``models/mixer.py``).
+
+Capability flags (the reference's): ``streaming`` (a constant-size
+per-slot decode state, so slots batch continuously; requires a ``step``),
+``has_fused_kernels`` (the record's train/prefill/decode paths launch
+hand-written kernels, chosen inside the record), ``spec_decodable`` (the
+state can be snapshot and rolled back, so speculative decoding may verify
+over it), ``needs_positions`` (consumes absolute positions, e.g. RoPE),
+``self_contained`` (owns its norms and channel mix, replacing the whole
+block), ``prealloc_state`` (prefill writes into a preallocated state,
+e.g. a KV cache).  The reference's ``state_axes`` / ``state_ndims`` are
+sharding data and wait for a multi-GPU port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import difflib
+from typing import Any, Callable, Dict, Optional, Tuple
+
+
+class SequenceOpError(KeyError):
+    """Unknown or duplicate operator: the message lists the registry."""
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -22,38 +37,90 @@ class SequenceOp:
     name: str
     specs: Callable[[Any], Any]
     forward: Callable[..., Any]
-    step: Callable[..., Any]
     init_state: Callable[..., Any]
+    step: Optional[Callable[..., Any]] = None
+    # capability flags
     streaming: bool = False
+    has_fused_kernels: bool = False
     spec_decodable: bool = False
+    needs_positions: bool = False
+    self_contained: bool = False
+    prealloc_state: bool = False
     # optional analytic-cost override read by ``obs/costs.py``:
     # ``cost_model(cfg, *, mode, seq_len, batch) -> dict`` may return
     # ``state_flops_per_token`` and/or ``state_bytes_per_token`` to replace
     # the family formula for this op's state math (projection FLOPs and
     # state bytes always come from the record's specs and init_state)
     cost_model: Optional[Callable[..., Dict[str, float]]] = None
+    # key of the operator's params inside a layer's param dict (default:
+    # its name; the HLA family keeps the reference's "mixer")
+    param_key: Optional[str] = None
+
+    def __post_init__(self):
+        if self.param_key is None:
+            object.__setattr__(self, "param_key", self.name)
+        if self.streaming and self.step is None:
+            raise SequenceOpError(
+                f"op {self.name!r}: streaming=True requires a step()")
 
 
 _REGISTRY: Dict[str, SequenceOp] = {}
 
 
 def register_op(op: SequenceOp) -> SequenceOp:
+    """Register ``op`` under ``op.name``; a second record for one name
+    raises ``SequenceOpError``."""
+    if not isinstance(op, SequenceOp):
+        raise TypeError(f"register_op expects a SequenceOp, got {type(op)}")
     if op.name in _REGISTRY:
-        raise KeyError(f"sequence op {op.name!r} is already registered")
+        raise SequenceOpError(
+            f"sequence op {op.name!r} is already registered; "
+            f"registered ops: {sorted(_REGISTRY)}")
     _REGISTRY[op.name] = op
     return op
 
 
-def get_op(name: str) -> SequenceOp:
-    """The registered operator ``name``."""
-    from . import mixer  # noqa: F401  (registers hla2 and ahla)
+def _ensure_builtins() -> None:
+    from . import mixer  # noqa: F401  (registers the HLA family)
 
+
+def _unknown(name) -> SequenceOpError:
+    known = sorted(_REGISTRY)
+    close = difflib.get_close_matches(str(name), known, n=1)
+    hint = f" (did you mean {close[0]!r}?)" if close else ""
+    return SequenceOpError(
+        f"unknown sequence op {name!r}{hint}; registered ops: {known}")
+
+
+def get_op(name: str) -> SequenceOp:
+    """The registered operator ``name``; an unknown name fails with the
+    registry listing and the closest match."""
+    _ensure_builtins()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown sequence op {name!r}; registered ops: "
-                       f"{sorted(_REGISTRY)}")
+        raise _unknown(name)
     return _REGISTRY[name]
+
+
+def registered_op_names() -> Tuple[str, ...]:
+    _ensure_builtins()
+    return tuple(sorted(_REGISTRY))
+
+
+def streaming_op_names() -> Tuple[str, ...]:
+    _ensure_builtins()
+    return tuple(sorted(n for n, op in _REGISTRY.items() if op.streaming))
+
+
+def op_name_for(cfg) -> str:
+    """The operator ``cfg.mixer`` names ("softmax" is the reference's
+    spelling of "attn").  No fallback: an unknown name raises."""
+    _ensure_builtins()
+    name = "attn" if cfg.mixer == "softmax" else cfg.mixer
+    if name not in _REGISTRY:
+        raise _unknown(cfg.mixer)
+    return name
 
 
 def op_for(cfg) -> SequenceOp:
     """The registered operator ``cfg.mixer`` names."""
-    return get_op(cfg.mixer)
+    return _REGISTRY[op_name_for(cfg)]

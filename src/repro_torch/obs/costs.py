@@ -1,8 +1,7 @@
 """Analytic per-op cost model for the port's ``SequenceOp`` records.
 
-Twin of ``repro/obs/costs.py`` for the records the port registers
-(``hla2``, ``ahla``; the ``linattn`` formulas are kept because AHLA is two
-first-order passes).  One question, answered without running anything: *how
+Twin of ``repro/obs/costs.py`` for the records the port registers: the
+HLA family, ``linattn``, ``hla2``, ``ahla``, ``hla3`` and ``hla3_paper``.  One question, answered without running anything: *how
 many FLOPs and how many HBM bytes does operator X move per token* on each
 of its execution paths: ``train_fwd`` / ``train_bwd`` (full-sequence
 chunkwise), ``train_step`` (both), ``prefill`` (same chunk math, one call)
@@ -18,7 +17,9 @@ Derivation (the reference's):
 * **State math** is per family: linear attention carries an O(d·dv) state
   (2 matvecs/token), HLA2 adds the O(d²) second-moment update plus the
   intra-chunk masked ``(c×c)·(c×c)`` product, AHLA is two first-order
-  passes.  Chunk width enters as ``c = min(cfg.hla.chunk, seq_len)``.
+  passes, the exact third order a first-order pass then an HLA2 pass, the
+  paper's third order HLA2-shaped products plus the (x)3 cross terms on
+  the carry.  Chunk width enters as ``c = min(cfg.hla.chunk, seq_len)``.
 * **State bytes** are measured without memory: the leaves of
   ``op.init_state(cfg, 1, torch.device("meta"))`` (the reference runs
   ``jax.eval_shape``).  A streaming state does not depend on the sequence
@@ -106,6 +107,18 @@ def _fwd_ahla(cfg, c, n):
     return 2.0 * _fwd_linattn(cfg, c, n)
 
 
+def _fwd_hla3(cfg, c, n):
+    # exact factorization HLA2_masked(Q, K, LinAttn(Q, K, V))
+    return _fwd_linattn(cfg, c, n) + _fwd_hla2(cfg, c, n)
+
+
+def _fwd_hla3_paper(cfg, c, n):
+    # Alg 4 chunkwise: HLA2-shaped masked matmuls + the (x)3 cross terms
+    # applied to the (S^K, S^Q, P) carry (never materialized)
+    H, d, dv = _dims(cfg)
+    return 1.5 * _fwd_hla2(cfg, c, n) + H * (4.0 * d * d * dv / c)
+
+
 def _dec_linattn(cfg, L):
     H, d, dv = _dims(cfg)
     return H * (4 * d * dv + 2 * d)
@@ -121,12 +134,22 @@ def _dec_ahla(cfg, L):
     return H * (10 * d * dv + 4 * d)
 
 
+def _dec_hla3(cfg, L):
+    return _dec_linattn(cfg, L) + _dec_hla2(cfg, L)
+
+
+def _dec_hla3_paper(cfg, L):
+    return 1.5 * _dec_hla2(cfg, L)
+
+
 _FWD_STATE_FLOPS: Dict[str, Callable] = {
     "linattn": _fwd_linattn, "hla2": _fwd_hla2, "ahla": _fwd_ahla,
+    "hla3": _fwd_hla3, "hla3_paper": _fwd_hla3_paper,
 }
 
 _DEC_STATE_FLOPS: Dict[str, Callable] = {
     "linattn": _dec_linattn, "hla2": _dec_hla2, "ahla": _dec_ahla,
+    "hla3": _dec_hla3, "hla3_paper": _dec_hla3_paper,
 }
 
 
@@ -151,8 +174,10 @@ def record_state_bytes(op, cfg, *, max_len: int = 64) -> int:
     import torch
 
     del max_len
+    from ..models.state_tree import leaves
+
     state = op.init_state(cfg, 1, torch.device("meta"))
-    return int(sum(x.numel() * x.element_size() for x in state))
+    return int(sum(x.numel() * x.element_size() for x in leaves(state)))
 
 
 def record_cost(op, cfg, *, mode: str = "train_fwd",

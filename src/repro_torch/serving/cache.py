@@ -39,6 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.state_tree import flatten, leaves
 from ..obs import Obs
 
 # polynomial rolling hash over token ids: h_{i+1} = h_i * _BASE + tok + 1
@@ -60,36 +61,6 @@ def rolling_hashes(tokens: np.ndarray, lengths: List[int]) -> List[int]:
     return out
 
 
-def _flatten(tree):
-    """``(leaves, rebuild)`` of a state tree: a tensor, a (named) tuple or
-    list, or a dict (sorted keys); ``rebuild(leaves)`` is the same tree
-    over new leaves.  The leaf order is the reference's tree order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree], lambda leaves: leaves[0]
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        parts = [_flatten(tree[k]) for k in keys]
-    elif isinstance(tree, (tuple, list)):
-        keys = None
-        parts = [_flatten(x) for x in tree]
-    else:
-        raise TypeError(f"state tree leaf of type {type(tree).__name__}")
-    sizes = [len(p[0]) for p in parts]
-
-    def rebuild(leaves):
-        subs, i = [], 0
-        for (_, sub), n in zip(parts, sizes):
-            subs.append(sub(leaves[i:i + n]))
-            i += n
-        if keys is not None:
-            return dict(zip(keys, subs))
-        if hasattr(tree, "_fields"):  # NamedTuple
-            return type(tree)(*subs)
-        return type(tree)(subs)
-
-    return [leaf for p in parts for leaf in p[0]], rebuild
-
-
 def _leaf_bytes(leaf: torch.Tensor) -> np.ndarray:
     """The leaf's bytes as a flat uint8 view of its own (CPU) buffer."""
     # a host tensor: entries are CPU tensors, so this moves nothing
@@ -99,14 +70,14 @@ def _leaf_bytes(leaf: torch.Tensor) -> np.ndarray:
 
 def tree_bytes(tree) -> int:
     """Total bytes of a state snapshot's leaves."""
-    return int(sum(x.numel() * x.element_size() for x in _flatten(tree)[0]))
+    return int(sum(x.numel() * x.element_size() for x in leaves(tree)))
 
 
 def tree_checksum(tree) -> int:
     """crc32 over every leaf's raw bytes (order = tree leaf order), read
     in place from each contiguous leaf's buffer."""
     crc = 0
-    for leaf in _flatten(tree)[0]:
+    for leaf in leaves(tree):
         crc = zlib.crc32(_leaf_bytes(leaf), crc)
     return crc
 
@@ -235,12 +206,12 @@ class PrefixCache:
         copy into the entry."""
         if self.faults is None or self.faults.hit("cache.corrupt") is None:
             return
-        leaves, rebuild = _flatten(entry.state)
-        leaf = leaves[0].clone()
+        flat, rebuild = flatten(entry.state)
+        leaf = flat[0].clone()
         buf = leaf.reshape(-1).view(torch.uint8)
         buf[: max(1, buf.numel() // 16)] ^= 0xFF
-        leaves[0] = leaf
-        entry.state = rebuild(leaves)
+        flat[0] = leaf
+        entry.state = rebuild(flat)
 
     def lookup(self, tokens, *, max_prefix: Optional[int] = None
                ) -> Optional[Tuple[int, Any]]:

@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from ..models import lm, seq_op
+from ..models.state_tree import leaves, tree_map
 from ..obs import Obs
 from ..runtime.faults import FaultPlan
 from .cache import PrefixCache
@@ -185,14 +186,15 @@ class GenResult:
 
 
 def _finite(states) -> torch.Tensor:
-    ok = torch.ones((), dtype=torch.bool, device=states[0].device)
-    for x in states:
+    flat = leaves(states)
+    ok = torch.ones((), dtype=torch.bool, device=flat[0].device)
+    for x in flat:
         ok &= x.isfinite().all()
     return ok
 
 
 def _to(states, device, **kw):
-    return type(states)(*(x.to(device, **kw) for x in states))
+    return tree_map(lambda x: x.to(device, **kw), states)
 
 
 class Engine:
@@ -357,7 +359,7 @@ class Engine:
         nan = self.faults.hit("engine.nan_state")
         if nan is not None:
             slot = int(nan.arg) if nan.arg is not None else 0
-            for x in self.pool.states:
+            for x in leaves(self.pool.states):
                 if x.is_floating_point():
                     x[:, slot] = float("nan")
 

@@ -32,6 +32,7 @@ import torch
 
 from ...models import lm, seq_op
 from ...models.param import init_params
+from ...models.state_tree import tree_map
 from ..sampling import SamplingConfig, probs, sample
 from ..state_pool import StatePool, to_device
 from .verify import make_replay
@@ -210,8 +211,7 @@ class HLADrafter(Drafter):
                               to_device(pending, self.device),
                               pend_len)
         # 2) k draft steps on a copy of the pool: its states are dropped
-        states = type(self.pool.states)(
-            *(x.clone() for x in self.pool.states))
+        states = tree_map(torch.clone, self.pool.states)
         tok = to_device(self.last[:, None], self.device)
         drafts, qs = [], []
         for _ in range(k):

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from ...models import lm
+from ...models.state_tree import leaves
 from ..sampling import SamplingConfig, draw, probs
 from ..state_pool import to_device
 
@@ -188,7 +189,7 @@ def make_spec_round(cfg, scfg: SamplingConfig, *, draft_probs: bool = False):
         if (n_comm[active] == k + 1).all():
             # no rollback: the verify states become the pool's, copied into
             # its own tensors (the round donates the pool)
-            for dst, src in zip(pool.states, ver_states):
+            for dst, src in zip(leaves(pool.states), leaves(ver_states)):
                 dst.copy_(src)
             return packed_h, finite_h, new_tokens, 0
         steps = replay(params, pool, tok_block, n_comm)

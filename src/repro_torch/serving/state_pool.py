@@ -1,7 +1,8 @@
 """Per-slot decode-state pool (twin of ``repro/serving/state_pool.py``).
 
-The pooled states are the model's state tuple with every leaf
-``(layers, slots, ...)``; the slot axis is axis 1 of every leaf.  The decode
+The pooled states are the model's state tree (``models.state_tree``: a flat
+NamedTuple for hla2/ahla, nested for hla3) with every leaf ``(layers,
+slots, ...)``; the slot axis is axis 1 of every leaf.  The decode
 kernel updates these tensors in place, so ``read_slot`` and
 ``snapshot_slot`` return copies: a reference to the pool would change under
 the next decode step.  ``write_slot`` (and ``restore_slot``) accept a
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+
+from ..models.state_tree import leaves, tree_map
 
 
 def to_device(x, device) -> torch.Tensor:
@@ -29,7 +32,7 @@ def to_device(x, device) -> torch.Tensor:
 
 class StatePool:
     """Owns the pooled decode states for ``slots`` concurrent requests.
-    ``template_fn(n)`` builds the zero state tuple for ``n`` slots."""
+    ``template_fn(n)`` builds the zero state tree for ``n`` slots."""
 
     def __init__(self, template_fn: Callable[[int], Any], slots: int):
         if slots < 1:
@@ -45,24 +48,23 @@ class StatePool:
     def write_slot(self, slot: int, state) -> None:
         """Copy a single-slot state (slot axis of extent 1, on the pool's
         device or the host) into ``slot``; other slots are untouched."""
-        for pooled, new in zip(self.states, state):
+        for pooled, new in zip(leaves(self.states), leaves(state)):
             pooled[:, slot].copy_(new[:, 0])
 
     def read_slot(self, slot: int):
-        """A copy of ``slot``'s state as a single-slot state tuple."""
-        return type(self.states)(
-            *(x[:, slot:slot + 1].clone() for x in self.states))
+        """A copy of ``slot``'s state as a single-slot state tree."""
+        return tree_map(lambda x: x[:, slot:slot + 1].clone(), self.states)
 
     def reset_slot(self, slot: int) -> None:
         """Zero a slot (eviction / quarantine)."""
-        for x in self.states:
+        for x in leaves(self.states):
             x[:, slot].zero_()
 
     def finite_mask(self, states=None) -> torch.Tensor:
         """``(slots,)`` bool on the pool's device: True where every state
         element of that slot is finite, in the pool or in ``states``, a
-        state tuple of the pool's layout.  No host sync."""
-        src = self.states if states is None else states
+        state tree of the pool's layout.  No host sync."""
+        src = leaves(self.states if states is None else states)
         ok = torch.ones(self.slots, dtype=torch.bool, device=src[0].device)
         for x in src:
             ok &= x.isfinite().flatten(2).all(-1).all(0)
@@ -71,7 +73,7 @@ class StatePool:
     # -- snapshot / rollback (speculative decoding) -------------------------
 
     def snapshot_slot(self, slot: int, *, host: bool = False):
-        """An O(state) copy of ``slot``'s decode state, a single-slot tuple.
+        """An O(state) copy of ``slot``'s decode state, a single-slot tree.
         It stays as it was through later in-place decode steps on the pool.
 
         ``host=True`` returns CPU tensors instead: long-lived snapshots (the
@@ -82,7 +84,7 @@ class StatePool:
         if not host:
             return snap
         # sync-point: host-RAM state snapshot
-        return type(snap)(*(x.cpu() for x in snap))
+        return tree_map(lambda x: x.cpu(), snap)
 
     def restore_slot(self, slot: int, snapshot) -> None:
         """Roll ``slot`` back to ``snapshot`` (from ``snapshot_slot``, on the

@@ -144,3 +144,44 @@ def test_cost_model_hook_overrides_state_terms():
     assert hooked.breakdown["state_traffic_bytes"] == 777.0
     assert hooked.breakdown["proj_flops"] == base.breakdown["proj_flops"]
     assert hooked.state_bytes == base.state_bytes
+
+
+FAMILY = ("hla3", "hla3_paper", "linattn")
+
+
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "hla-1b"])
+@pytest.mark.parametrize("mixer", FAMILY)
+def test_family_costs_match_reference(mixer, reduced):
+    """``op_cost`` and ``model_cost`` of the plain HLA records equal the
+    reference's in every mode, field by field, and their state bytes are
+    the reference's ``eval_shape`` account."""
+    ref_cfg, cfg = _cfgs(mixer, reduced)
+    for mode in costs.MODES:
+        for seq_len, batch in ((1, 1), (64, 1), (300, 4), (2048, 2)):
+            kw = dict(mode=mode, seq_len=seq_len, batch=batch)
+            _same(costs.op_cost(mixer, cfg, **kw),
+                  ref_costs.op_cost(mixer, ref_cfg, **kw))
+            _same(costs.model_cost(cfg, **kw),
+                  ref_costs.model_cost(ref_cfg, **kw))
+    op, ref_op = seq_op.get_op(mixer), ref_seq_op.get_op(mixer)
+    assert costs.record_state_bytes(op, cfg) == \
+        ref_costs.record_state_bytes(ref_op, ref_cfg, max_len=64)
+    assert state_bytes_for(cfg) == cfg.n_layers * costs.record_state_bytes(
+        op, cfg)
+
+
+def test_hla_1b_family_state_bytes():
+    """The prefix cache's entry size per slot at full width, fp32 leaves."""
+    want = {"hla3": 101_842_944, "hla3_paper": 101_056_512,
+            "linattn": 25_362_432}
+    for mixer, nbytes in want.items():
+        assert state_bytes_for(get_config("hla-1b", mixer=mixer)) == nbytes
+
+
+@pytest.mark.parametrize("mixer", FAMILY)
+def test_family_analytic_flops_within_2x_of_counted(mixer):
+    cfg = get_config("hla-1b", reduced=True, mixer=mixer)
+    analytic = costs.op_cost(mixer, cfg, mode="train_fwd", seq_len=64)
+    counted = costs.measured_op_flops(mixer, cfg, seq_len=64)["per_token"]
+    ratio = analytic.flops_per_token / counted
+    assert 0.5 <= ratio <= 2.0, (analytic.flops_per_token, counted)
