@@ -18,7 +18,9 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    carry, which must be left as it was), the forwards' checkpoints and
    the backwards at the train phase's (32 rows x 2048 tokens), the
    backwards' normalize (and HLA2's lam) cases at d = 16 and across the
-   column tiles of d = 128;
+   column tiles of d = 128; and at phase 12's rows (codeqwen1.5-7b's 32
+   heads): the forwards at 32 rows, the steps at 128, HLA2's backward and
+   forward with checkpoints at 64 rows x 2048 tokens;
 3. check the port against its plain path on a small model (card vs CPU):
    prefill + decode logits, and the training loss and every parameter's
    gradient, with either mixer; and at full width that prefill(L) + one
@@ -105,6 +107,32 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    ``state_bytes_for(cfg)`` bytes; (d) 3 AdamW steps of ``hla3`` at 2 x
    2048 with the config's remat, bf16 activations: the loss falls.  Every
    run's launch counts are zeroed before it and must read 0 after;
+12. (runs after phase 11) softmax attention (``attn``, plain torch) and the
+   dense public configs, each at full width: (a) codeqwen1.5-7b (32
+   layers, 32 heads, qkv biases, vocabulary 92,416) with ``hla2`` and then
+   ``ahla`` in place of its attention: fp32 prefill(L) + a decode step
+   equals prefill(L + 1), then phase 4's 8 requests in bf16 through
+   ``Engine``, all ``ok``, exactly 32 chunk launches per admission and 32
+   step launches per decode step, no plain version; ``Engine`` refuses the
+   config's own ``attn``; (b) codeqwen1.5-7b with ``attn``, fp32
+   parameters: 2 prompts of 300 tokens prefilled into a KV cache, then 16
+   greedy decode steps, whose logits equal one cache prefill over all 316
+   tokens (``TOL_CACHE``), the same with fp32 caches (``TOL_CACHE_FP32``)
+   and the train-mode forward (``TOL_CACHE_VS_TRAIN``: its K/V are not
+   rounded to the bf16 cache); the K/V elements whose bf16 rounding
+   differs between the two caches are logged, and two planted faults
+   (decode positions, every cache's length, off by one) must each part
+   from the fp32-cache prefill by more than ``TOL_CACHE_FP32``;
+   the same in bf16 logs ms a decode step, and one more step makes no host
+   transfer and no sync warning; (c) internvl2-2b (24 layers, its
+   ``remat="full"``, bf16): 3 AdamW steps at 2 x 2048 tokens after 256
+   seeded ``vis_embed`` tokens, the loss falls; (d) codeqwen1.5-7b with
+   ``hla2`` at 4 layers: 3 AdamW steps at 2 x 2048, the loss falls, 24
+   forward (with checkpoints) and 12 backward launches at 64 rows; (e)
+   nemotron-4-15b (squared ReLU, GQA 48/8, vocabulary 256,000) at 2
+   layers: an fp32 prefill of 128 tokens and 8 decode steps equal the
+   cache prefill over 136, with (b)'s readings and planted faults.  No ``attn`` run launches any of the six
+   kernels;
 7. time each kernel and its plain version at its path's shapes (the step
    kernels also at 16 rows, one slot; the chunk forwards also at the
    verify shape, ``[verify]``).
@@ -116,6 +144,7 @@ repository, the script exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import re
@@ -1006,7 +1035,8 @@ def spec_phase(params, cfg, device, plain_bf16, n_req=8, lens=(256, 640),
 # --------------------------------------------------------------------------
 
 
-def profile_decode(params, cfg, device, slots=4, block=8, blocks=3):
+def profile_decode(params, cfg, device, slots=4, block=8, blocks=3,
+                   tag="profile"):
     """One ``obs.perf.profile_capture`` window (``torch.profiler``, CPU and
     CUDA activity) over ``blocks`` plain decode blocks of phase 4's engine
     (bf16, 4 slots, block 8, all slots live), with the forward, the
@@ -1015,7 +1045,7 @@ def profile_decode(params, cfg, device, slots=4, block=8, blocks=3):
     block outside the profiler) beside the host time of each part, the
     block's sync and copy, the launches and the device's busy time, and
     writes the profiler table and its Chrome trace under
-    ``build/chip_smoke/``."""
+    ``build/chip_smoke/`` (``<tag>_table.txt``, ``<tag>/``)."""
     from torch.autograd import DeviceType
     from torch.profiler import record_function
 
@@ -1055,7 +1085,7 @@ def profile_decode(params, cfg, device, slots=4, block=8, blocks=3):
     for mod, name, fn in originals:
         setattr(mod, name, labelled(fn, labels[name]))
     try:
-        with profile_capture(str(out_dir / "profile"), obs=engine.obs) \
+        with profile_capture(str(out_dir / tag), obs=engine.obs) \
                 as prof:
             t0 = time.perf_counter()
             for _ in range(blocks):
@@ -1067,7 +1097,7 @@ def profile_decode(params, cfg, device, slots=4, block=8, blocks=3):
             setattr(mod, name, fn)
     steps = blocks * block
     table = prof.key_averages()
-    (out_dir / "profile_table.txt").write_text(
+    (out_dir / f"{tag}_table.txt").write_text(
         table.table(sort_by="self_cpu_time_total", row_limit=40))
 
     def cpu_ms(*keys):
@@ -1593,24 +1623,20 @@ def _count_train(device, cfg, fn):
         name.removesuffix("_plain") for name in plain_calls))
 
 
-def train(device, mixer="hla2", steps=5, batch=2, seq=2048, remat=None):
-    """AdamW steps of full-width hla-1b with ``mixer`` (24 layers, bf16
-    activations, fp32 parameters and moments; the config's
-    ``remat="full"`` unless ``remat`` says otherwise) on one repeated
-    synthetic batch.  Returns the launch counts of the run and its summary
-    numbers."""
+def train(device, cfg, steps=5, batch=2, seq=2048):
+    """AdamW steps of ``cfg`` (its activations' dtype and remat, fp32
+    parameters and moments) on one repeated synthetic batch (with
+    ``cfg.vis_tokens`` seeded patch embeddings x 0.1 before the tokens).
+    Returns the launch counts of the run and its summary numbers."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.distributed.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.models.param import init_params
     from repro_torch.optim import adamw
 
-    cfg = get_config("hla-1b", mixer=mixer)
-    cfg = cfg if remat is None else cfg.replace(remat=remat)
     params = init_params(lm.lm_specs(cfg), 0, device)
     # with one warmup step, the default lr 3e-4 moves every weight by ~lr
     # at once: on this random-weight model the loss rose 11.0 -> 18.2 and
@@ -1621,8 +1647,15 @@ def train(device, mixer="hla2", steps=5, batch=2, seq=2048, remat=None):
     step_fn = make_train_step(cfg, opt_cfg)
     host = SyntheticStream(DataConfig(cfg.vocab, seq, batch, seed=0)).batch(0)
     data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-    torch.cuda.synchronize(device)
-    torch.cuda.reset_peak_memory_stats(device)
+    if cfg.vis_tokens:
+        gen = torch.Generator(device=device).manual_seed(4)
+        data["vis_embed"] = torch.randn(
+            (batch, cfg.vis_tokens, cfg.d_model), generator=gen,
+            device=device) * 0.1
+    _sync(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     losses, norms, step_s = [], [], []
 
     def run():
@@ -1635,12 +1668,13 @@ def train(device, mixer="hla2", steps=5, batch=2, seq=2048, remat=None):
             norms.append(float(m["grad_norm"]))
 
     _, launches = _count_train(device, cfg, run)
-    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
     p50 = float(np.percentile(step_s, 50))
+    vis = f" (+ {cfg.vis_tokens} vis_embed)" if cfg.vis_tokens else ""
     log(f"trained {cfg.name} ({cfg.mixer}; {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.dtype} activations, fp32 parameters and "
         f"moments, remat {cfg.remat}) for {steps} AdamW steps on one "
-        f"{batch} x {seq} batch: loss "
+        f"{batch} x {seq}{vis} batch: loss "
         f"{' '.join(f'{x:.4f}' for x in losses)} | grad norm "
         f"{' '.join(f'{x:.3f}' for x in norms)} | step "
         f"{' '.join(f'{x:.3f}' for x in step_s)} s | step p50 {p50:.3f}s "
@@ -1662,8 +1696,11 @@ def train_phase(device, mixer="hla2"):
     launches the kernels line reports), then the same steps without remat,
     to say what recomputing costs.  Returns the remat run's launches and
     summary numbers."""
-    launches, full = train(device, mixer)
-    _, none = train(device, mixer, remat="none")
+    from repro_torch.configs import get_config
+
+    cfg = get_config("hla-1b", mixer=mixer)
+    launches, full = train(device, cfg)
+    _, none = train(device, cfg.replace(remat="none"))
     log(f"remat cost ({mixer}): step p50 {full['step_p50_s']:.3f}s with "
         f"remat, {none['step_p50_s']:.3f}s without "
         f"({full['step_p50_s'] / none['step_p50_s'] - 1:+.1%}); peak memory "
@@ -2262,9 +2299,335 @@ def family_phase(device):
               for m in FAMILY}
     entry = family_exact_serving(params, cfg.replace(mixer="hla3"), device)
     del params
-    _, trained = train(device, mixer="hla3", steps=3)
+    _, trained = train(device, cfg.replace(mixer="hla3"), steps=3)
     log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
     return dict(served=served, trained=trained, hla3_entry_bytes=entry)
+
+
+# --------------------------------------------------------------------------
+# phase 12: softmax attention and the dense public configs (after phase 11)
+# --------------------------------------------------------------------------
+
+
+# fp32 decode logits against one cache prefill over the same tokens, both
+# reading bf16 KV caches (the reference's numerics).  Readings (H100, 700
+# W): codeqwen1.5-7b 1.88e-6 at 32 layers; nemotron-4-15b 9.52e-5 at 2,
+# where layer 0's prompt K/V from GEMMs of 256 and 272 rows round to other
+# bf16 values in 373 elements and the difference spreads to 4% of layer
+# 1's.  It cannot tell codeqwen's planted position fault (1.68e-4) from
+# that rounding, so TOL_CACHE_FP32 carries the fault check
+TOL_CACHE = 3e-4
+# the same comparison with fp32 caches, the rounding taken out: readings
+# 1.41e-6 and 3.63e-6; each planted fault must part by more than this
+TOL_CACHE_FP32 = 2e-5
+# fp32 decode logits against the train-mode forward, whose K/V are not
+# rounded to bf16: the reference's own tolerance for this comparison
+# (tests/test_archs.py::test_decode_matches_full_forward)
+TOL_CACHE_VS_TRAIN = 5e-2
+# the planted faults: decode() keyword arguments
+FAULTS = (("decode positions + 1", dict(pos_shift=1)),
+          ("cache length + 1", dict(len_shift=1)))
+FAULT_STEPS = 4  # decode steps of each planted fault
+# the configs phase 12 runs, each at full width
+PUBLIC = ("codeqwen1.5-7b", "internvl2-2b", "nemotron-4-15b")
+
+
+def _free(device):
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def dropin_serve(device, cfg):
+    """(a) ``cfg`` (codeqwen1.5-7b) with ``hla2`` and then ``ahla`` in
+    place of its attention (one set of weights: the two share a layout):
+    fp32 prefill(L) + a decode step equals prefill(L + 1), then phase 4's
+    8 requests in bf16 through ``Engine``, every one ``ok``, exactly
+    ``n_layers`` chunk launches per admission and step launches per decode
+    step, no plain version; ``Engine`` refuses the config's own ``attn``.
+    Returns each mixer's summary numbers."""
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+    from repro_torch.serving.engine import Engine
+
+    params = init_params(lm.lm_specs(cfg.replace(mixer="hla2")), 0, device)
+    out = {}
+    for mixer in ("hla2", "ahla"):
+        mcfg = cfg.replace(mixer=mixer)
+        check_identity(params, mcfg.replace(dtype="float32"))
+        plain_calls, restore = _count_plain_calls(SERVE_PLAINS)
+        try:
+            launches, served = serve(params, mcfg.replace(dtype="bfloat16"),
+                                     device)
+        finally:
+            restore()
+        if device.type == "cuda" and plain_calls:
+            raise AssertionError(f"plain versions called: {plain_calls}")
+        if mixer == "hla2" and device.type == "cuda":
+            # where a 32-layer decode step's time goes (phase 4b's method)
+            profile_decode(params, mcfg.replace(dtype="bfloat16"), device,
+                           tag="profile_codeqwen")
+        served.pop("streams")
+        out[mixer] = dict(served, launches=launches)
+        _free(device)
+    try:
+        Engine(cfg, params, device=device)
+    except ValueError as e:
+        log(f"(a) Engine on {cfg.name}'s own attn refuses: {e}")
+    else:
+        raise AssertionError("Engine accepted the non-streaming attn op")
+    return out
+
+
+def _profile_calls(device, fn, calls=2):
+    """``torch.profiler`` (CPU and CUDA activity) over ``fn(0)``, ...,
+    ``fn(calls - 1)``: a call's kernel launches, aten ops, device busy ms
+    (the device rows' own time) and wall ms under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    _sync(device)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for j in range(calls):
+            fn(j)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    table = prof.key_averages()
+    launch_keys = ("cudaLaunchKernel", "cuLaunchKernelEx",
+                   "cudaLaunchKernelExC")
+    return dict(
+        launches=sum(e.count for e in table if e.key in launch_keys) / calls,
+        aten_ops=sum(e.count for e in table
+                     if e.key.startswith("aten::")) / calls,
+        device_ms=sum(e.self_device_time_total for e in table
+                      if e.device_type == DeviceType.CUDA) / 1e3 / calls,
+        wall_ms=1e3 * wall / calls)
+
+
+@contextlib.contextmanager
+def _fp32_kv_cache():
+    """Every KV cache made inside holds fp32 K/V: the control that takes
+    the bf16 cache's rounding out of a comparison."""
+    from repro_torch.models import attention
+
+    made = attention.init_kv_cache
+
+    def fp32(*args, **kw):
+        c = made(*args, **kw)
+        return c._replace(k=c.k.float(), v=c.v.float())
+
+    attention.init_kv_cache = fp32
+    try:
+        yield
+    finally:
+        attention.init_kv_cache = made
+
+
+def _kv_parted(a, b, prompt, n):
+    """The K/V elements of two stacked bf16 caches that differ over
+    positions [0, n), in layer 0 and in every layer, for the prompt's
+    positions and the decoded ones: ``{region: (parted in layer 0, its
+    elements, parted in all, their elements, the largest difference over
+    the largest magnitude)}``."""
+    import torch
+
+    out = {}
+    for region, sl in (("prompt", slice(0, prompt)),
+                       ("decoded", slice(prompt, n))):
+        xs = torch.stack([a.k[:, :, :, sl], a.v[:, :, :, sl]])
+        ys = torch.stack([b.k[:, :, :, sl], b.v[:, :, :, sl]])
+        parted = xs != ys
+        out[region] = (int(parted[:, 0].sum()), parted[:, 0].numel(),
+                       int(parted.sum()), parted.numel(), rel_err(xs, ys))
+    return out
+
+
+def attn_decode(device, cfg, prompt=300, steps=16, bf16=True):
+    """(b), (e): ``cfg`` with softmax attention, fp32 parameters, 2 rows:
+    an fp32 ``lm_prefill`` of ``prompt`` tokens into a KV cache, then
+    ``steps`` greedy decode steps (``lm_apply(mode="decode",
+    positions=...)``); their logits equal one cache prefill over all the
+    tokens (``TOL_CACHE``), the same with fp32 caches
+    (``TOL_CACHE_FP32``) and the train-mode forward
+    (``TOL_CACHE_VS_TRAIN``, its K/V unrounded).  Logged: the K/V elements
+    whose bf16 rounding differs between the two caches, and the planted
+    ``FAULTS`` in either cache dtype; with fp32 caches each must part from
+    the cache prefill by more than ``TOL_CACHE_FP32``.  With ``bf16`` the
+    same decode in bf16 activations, logging ms a decode step, and one
+    more decode step under the contracts' watch: no host transfer, no sync
+    warning.  None of the six kernels launches.  Returns the summary
+    numbers."""
+    import torch
+
+    from repro_torch.analysis.contracts import _watch
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+
+    cfg32 = cfg.replace(dtype="float32")
+    params = init_params(lm.lm_specs(cfg), 0, device)
+    B = 2
+    gen = torch.Generator(device=device).manual_seed(7)
+    prompt_tok = torch.randint(2, cfg.vocab, (B, prompt), device=device,
+                               generator=gen)
+    cuda = device.type == "cuda"
+    tag = "b" if bf16 else "e"
+
+    def decode(c, p, n_steps, feed=None, pos_shift=0, len_shift=0):
+        """Prefill, then ``n_steps`` decode steps, greedy or fed ``feed``'s
+        tokens; ``pos_shift`` and ``len_shift`` plant a fault (the decode
+        positions, every layer's cache length, off by that much).  Returns
+        (the decode logits (B, n_steps, vocab), every token fed, the
+        states, seconds a step)."""
+        last, st = lm.lm_prefill(p, prompt_tok, c)
+        if len_shift:
+            st.length.add_(len_shift)
+        tok = last.argmax(-1, keepdim=True)
+        fed, logits, secs = [prompt_tok], [], []
+        for j in range(n_steps):
+            if feed is not None:
+                tok = feed[:, j:j + 1]
+            pos = torch.full((B, 1), prompt + j + pos_shift, device=device)
+            _sync(device)
+            t0 = time.perf_counter()
+            lg, st = lm.lm_apply(p, tok, c, states=st, positions=pos,
+                                 mode="decode")
+            _sync(device)
+            secs.append(time.perf_counter() - t0)
+            fed.append(tok)
+            logits.append(lg)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        return torch.cat(logits, 1), torch.cat(fed, 1), st, secs
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        (dec, toks, st_dec, secs32), _ = _no_launches(
+            device, f"{cfg.name} fp32 decode",
+            lambda: decode(cfg32, params, steps))
+        (full, st_full), _ = _no_launches(
+            device, f"{cfg.name} fp32 cache prefill",
+            lambda: lm.lm_apply(params, toks, cfg32, mode="prefill"))
+        trained, _ = lm.lm_apply(params, toks, cfg32)
+        e_cache = rel_err(dec, full[:, prompt:])
+        e_train = rel_err(dec, trained[:, prompt:])
+        parted = _kv_parted(st_dec, st_full, prompt, prompt + steps)
+        del trained, st_dec, st_full
+
+        def planted(full, toks):
+            """Each fault's fed decode logits against the cache prefill."""
+            feed = toks[:, prompt:prompt + FAULT_STEPS]
+            return {label: rel_err(
+                decode(cfg32, params, FAULT_STEPS, feed=feed, **kw)[0],
+                full[:, prompt:prompt + FAULT_STEPS])
+                for label, kw in FAULTS}
+
+        faults = planted(full, toks)
+        del full
+        with _fp32_kv_cache():
+            dec_c, toks_c, _, _ = decode(cfg32, params, steps)
+            full_c, _ = lm.lm_apply(params, toks_c, cfg32, mode="prefill")
+            e_fp32_cache = rel_err(dec_c, full_c[:, prompt:])
+            faults_fp32 = planted(full_c, toks_c)
+        del dec_c, full_c
+    out = dict(fp32_ms=1e3 * statistics.median(secs32), e_cache=e_cache,
+               e_train=e_train, e_fp32_cache=e_fp32_cache, parted=parted,
+               faults=faults, faults_fp32=faults_fp32)
+    log(f"({tag}) {cfg.name} (attn; {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"{cfg.mlp}) fp32, {B} rows: prefill {prompt} + {steps} greedy "
+        f"decode steps vs one cache prefill of {prompt + steps}: logits rel "
+        f"{e_cache:.2e} (tol {TOL_CACHE:.0e}); with fp32 caches "
+        f"{e_fp32_cache:.2e} (tol {TOL_CACHE_FP32:.0e}); vs the train-mode "
+        f"forward (unrounded K/V) rel {e_train:.2e} (tol "
+        f"{TOL_CACHE_VS_TRAIN:.0e}); a decode step {out['fp32_ms']:.2f} ms")
+    for region, (p0, n0, pa, na, e_kv) in parted.items():
+        log(f"({tag}) {cfg.name} K/V elements of the {region} positions "
+            f"that round to other bf16 values in the decode route's cache "
+            f"than in the cache prefill's: layer 0 {p0:,} of {n0:,}, all "
+            f"layers {pa:,} of {na:,} ({pa / na:.2e}); K/V rel {e_kv:.2e}")
+    for label, _ in FAULTS:
+        log(f"({tag}) {cfg.name} planted fault, {label}, {FAULT_STEPS} fed "
+            f"decode steps vs the cache prefill: logits rel "
+            f"{faults[label]:.2e} with bf16 caches; "
+            f"{faults_fp32[label]:.2e} with fp32 caches (must exceed "
+            f"TOL_CACHE_FP32 {TOL_CACHE_FP32:.0e})")
+    if not bool(dec.isfinite().all()) or e_cache > TOL_CACHE or \
+            e_fp32_cache > TOL_CACHE_FP32 or e_train > TOL_CACHE_VS_TRAIN:
+        raise AssertionError("attn decode != cache prefill / forward")
+    if min(faults_fp32.values()) <= TOL_CACHE_FP32:
+        raise AssertionError("TOL_CACHE_FP32 passes a planted fault")
+    if bf16:
+        cfg16 = cfg.replace(dtype="bfloat16")
+        p16 = lm.cast_params(params, cfg16)
+        del params
+        _free(device)
+        with torch.no_grad():
+            (dec16, _, st, secs), _ = _no_launches(
+                device, f"{cfg.name} bf16 decode",
+                lambda: decode(cfg16, p16, steps))
+            nxt = dec16[:, -1].argmax(-1, keepdim=True)
+
+            def step(j):
+                pos = torch.full((B, 1), prompt + steps + j, device=device)
+                return lm.lm_apply(p16, nxt, cfg16, states=st,
+                                   positions=pos, mode="decode")
+
+            prof = _profile_calls(device, step, calls=2)
+            with _watch(device) as w:
+                step(2)
+        transfers = sum(w.transfers.values())
+        out.update(bf16_ms=1e3 * statistics.median(secs),
+                   transfers=transfers, sync_warnings=w.sync_warnings)
+        out.update(prof)
+        log(f"(b) {cfg.name} bf16 decode: {out['bf16_ms']:.2f} ms a step "
+            f"({out['bf16_ms'] / B:.2f} ms a token, {B} rows, context "
+            f"{prompt}-{prompt + steps}); profiled: {prof['launches']:.0f} "
+            f"kernel launches and {prof['aten_ops']:.0f} aten ops a step, "
+            f"device busy {prof['device_ms']:.2f} of {prof['wall_ms']:.2f} "
+            f"ms; one step under the watch: {transfers} host transfers, "
+            f"{w.sync_warnings} sync warnings")
+        if transfers or w.sync_warnings:
+            raise AssertionError("an attn decode step synced the host")
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30 \
+        if cuda else 0.0
+    log(f"{cfg.name} attn decode peak memory {out['peak_gib']:.2f} GiB")
+    return out
+
+
+def public_phase(device, configs):
+    """Phase 12 on ``configs``, which maps each arch of ``PUBLIC`` to its
+    config (the full ones on the card; ``reduced()`` ones rehearse on the
+    CPU): (a) codeqwen1.5-7b served with hla2/ahla, (b) its own attn
+    decoding, (c) internvl2-2b training with attn and vis_embed, (d)
+    codeqwen1.5-7b training with hla2 at 4 layers, (e) nemotron-4-15b at 2
+    layers decoding with attn.  Returns the summary numbers."""
+    t0 = time.perf_counter()
+    codeqwen = configs["codeqwen1.5-7b"]
+    _free(device)
+    served = dropin_serve(device, codeqwen)
+    _free(device)
+    decoded = attn_decode(device, codeqwen)
+    _free(device)
+    vlm_launches, vlm = train(device, configs["internvl2-2b"], steps=3)
+    _free(device)
+    dropin_launches, dropin_trained = train(
+        device, codeqwen.replace(mixer="hla2", n_layers=4), steps=3)
+    _free(device)
+    nemotron = attn_decode(device,
+                           configs["nemotron-4-15b"].replace(n_layers=2),
+                           prompt=128, steps=8, bf16=False)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f}s")
+    return dict(served=served, decoded=decoded, vlm=vlm,
+                vlm_launches=vlm_launches, dropin_trained=dropin_trained,
+                dropin_launches=dropin_launches, nemotron=nemotron)
 
 
 # --------------------------------------------------------------------------
@@ -2765,6 +3128,14 @@ def main() -> int:
     check_ahla_chunk_bwd(device, rows=8, d=16, ns=(130, 7), small=True)
     # normalize across four value tiles and the one-column den tile, ragged
     check_ahla_chunk_bwd(device, rows=4, d=128, ns=(300,), small=True)
+    # phase 12's rows at codeqwen1.5-7b's 32 heads: an admission's 32, a
+    # decode step's 128 (4 slots), (d)'s training 64 (the backward and the
+    # forward with checkpoints)
+    check_chunk(device, rows=32)
+    check_ahla_chunk(device, rows=32)
+    check_step(device, rows=128)
+    check_ahla_step(device, rows=128)
+    check_chunk_bwd(device, rows=64)
     torch.cuda.synchronize()
 
     check_small_model(device)
@@ -2793,6 +3164,7 @@ def main() -> int:
     tooling_phase(device, {"hla2": plain, "ahla": ahla_plain},
                   {"hla2": trained, "ahla": ahla_trained})
     family_phase(device)
+    public_phase(device, {a: get_config(a) for a in PUBLIC})
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels.append(time_verify(device, "hla2", verify_abs,
                                cfg.n_layers * spec["ngram"]["rounds"]))

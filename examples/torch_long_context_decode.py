@@ -9,9 +9,8 @@ a long context token by token through the HLA2 recurrence (one decode-step
 launch per layer and token on the card, the state updated in place); the
 state size is CONSTANT however long the context gets, against a KV cache
 growing linearly.  Prints state-vs-cache bytes and decode throughput at
-several context lengths.  The state bytes are read from meta tensors;
-softmax attention is not ported, so the KV cache's bytes are reckoned from
-the config in the reference's ``KVCache`` layout (``kv_cache_bytes``).
+several context lengths.  Both are read from states built on meta tensors
+(the KV cache: the same config with softmax attention, ``kv_cache_bytes``).
 """
 
 import argparse
@@ -32,11 +31,11 @@ def state_bytes(states):
 
 
 def kv_cache_bytes(cfg, B: int, ctx: int) -> int:
-    """Bytes of the reference's softmax-attention decode state for ``cfg``
-    at ``ctx`` tokens: per layer a ``KVCache`` of bf16 ``k`` and ``v``
-    ``(B, n_kv_heads, ctx, head_dim)`` and an int32 ``length``."""
-    kv = 2 * B * cfg.n_kv_heads * ctx * cfg.head_dim * 2
-    return cfg.n_layers * (kv + 4)
+    """Bytes of ``cfg``'s softmax-attention decode state at ``ctx`` tokens:
+    per layer a ``KVCache`` of bf16 ``k`` and ``v`` and an int32
+    ``length``."""
+    return state_bytes(lm.lm_init_states(cfg.replace(mixer="softmax"), B,
+                                         torch.device("meta"), max_len=ctx))
 
 
 def main(argv=None):

@@ -2,9 +2,23 @@
 
 from __future__ import annotations
 
-from . import hla_1b
+from . import (
+    codeqwen1_5_7b,
+    deepseek_67b,
+    hla_1b,
+    internvl2_2b,
+    nemotron_4_15b,
+    qwen2_72b,
+)
 
-_ARCHS = {"hla-1b": hla_1b}
+_ARCHS = {
+    "codeqwen1.5-7b": codeqwen1_5_7b,
+    "qwen2-72b": qwen2_72b,
+    "nemotron-4-15b": nemotron_4_15b,
+    "deepseek-67b": deepseek_67b,
+    "internvl2-2b": internvl2_2b,
+    "hla-1b": hla_1b,
+}
 
 
 def list_archs():

@@ -30,11 +30,15 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
                          f"{microbatches} microbatches")
     n_valid = (batch["labels"] >= 0).sum().clamp_min(1).float()
     live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    vis = batch.get("vis_embed")
     parts = zip(batch["tokens"].chunk(microbatches),
-                batch["labels"].chunk(microbatches))
+                batch["labels"].chunk(microbatches),
+                [None] * microbatches if vis is None
+                else vis.chunk(microbatches))
     loss = ce = 0.0
-    for tokens, labels in parts:
-        l, c = lm.lm_loss(live, tokens, labels, cfg, denom=n_valid)
+    for tokens, labels, vis_embed in parts:
+        l, c = lm.lm_loss(live, tokens, labels, cfg, vis_embed=vis_embed,
+                          denom=n_valid)
         l.backward()
         loss, ce = loss + l.detach(), ce + c.detach()
     # a leaf the loss does not reach (hla3_paper's decay_a) gets zeros, as
@@ -51,11 +55,12 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
 
     ``params`` is the fp32 parameter dict, ``batch`` holds ``tokens`` and
     ``labels`` (``(B, n)`` integer tensors on the parameters' device, ``B``
-    a multiple of ``microbatches``).  The gradient comes from autograd
-    through the model (``accumulate_grads``), whose mixer layers run
-    ``kernels.ops.hla2_attention`` or ``ahla_attention`` (``cfg.mixer``:
-    forward and backward kernels on the card; ``cfg.remat == "full"``
-    launches each forward kernel twice).  ``metrics`` holds the reference's
+    a multiple of ``microbatches``) and optionally ``vis_embed`` (``(B, nv,
+    d_model)`` patch embeddings prepended to the tokens).  The gradient
+    comes from autograd through the model (``accumulate_grads``), whose
+    mixer layers run ``kernels.ops.hla2_attention`` or ``ahla_attention``
+    (``cfg.mixer``: forward and backward kernels on the card; ``cfg.remat
+    == "full"`` launches each forward kernel twice).  ``metrics`` holds the reference's
     keys: the scalar tensors ``loss``, ``ce`` and ``grad_norm``, the float
     ``lr`` and ``aux`` = 0.0 (the port's stack has no auxiliary loss).
 

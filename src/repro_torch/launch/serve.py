@@ -11,11 +11,18 @@ and on the CPU (plain versions of the kernels) with ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
-``--mixer ahla`` swaps the arch's sequence op for AHLA (same weights
-layout, its own kernels); ``--mixer hla3``, ``hla3_paper`` or ``linattn``
-for the rest of the HLA family (same weights layout, plain torch).  ``--spec ngram`` (prompt lookup) or ``--spec lm``
-(a draft LM: ``--draft-arch``, reduced, random weights, the target's
-vocabulary) decodes speculatively, ``--spec-k`` draft tokens a round.
+``--arch`` takes every arch of ``configs/`` (hla-1b, codeqwen1.5-7b,
+qwen2-72b, deepseek-67b, nemotron-4-15b, internvl2-2b).  ``--mixer ahla``
+swaps the arch's sequence op for AHLA (same weights layout, its own
+kernels); ``--mixer hla3``, ``hla3_paper`` or ``linattn`` for the rest of
+the HLA family (same weights layout, plain torch).  The engine serves
+streaming ops only: an arch whose op is softmax attention (``attn``, the
+five public configs) serves with an HLA mixer in its place, e.g.
+``--arch codeqwen1.5-7b --mixer hla2``, and without one the engine
+refuses it, as the reference's does.  ``--spec ngram`` (prompt lookup)
+or ``--spec lm`` (a draft LM: ``--draft-arch``, reduced, random weights,
+the target's vocabulary) decodes speculatively, ``--spec-k`` draft tokens
+a round.
 
 The serving front-end:
 

@@ -22,10 +22,13 @@ failure at step 9 and a run that resumes from the checkpoint of step 7:
     (rerun without --fail-at-step: "[ft] resumed from step 7")
 
 Without ``--ckpt-dir`` the run checkpoints into a temporary directory that
-is removed when it ends, so it never resumes.  ``--mixer ahla`` trains the
-same model with the AHLA mixer (its own kernels, the same parameter
-layout); ``--mixer hla3``, ``hla3_paper`` or ``linattn`` with the rest of
-the HLA family (plain torch, the same parameter layout).
+is removed when it ends, so it never resumes.  ``--arch`` takes every arch
+of ``configs/``; the five public ones train softmax attention (``attn``,
+plain torch), internvl2-2b on tokens only, as the reference's CLI does.
+``--mixer ahla`` trains the same model with the AHLA mixer (its own
+kernels, the same parameter layout); ``--mixer hla3``, ``hla3_paper`` or
+``linattn`` with the rest of the HLA family (plain torch, the same
+parameter layout).
 """
 
 from __future__ import annotations

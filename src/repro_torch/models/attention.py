@@ -1,0 +1,178 @@
+"""Softmax attention: blockwise (flash-style) GQA and KV-cache decode, and
+the ``attn`` record (twin of ``repro/models/attention.py``).
+
+``flash_attention`` never materializes the (n, n) score matrix: a Python
+loop over KV blocks carries (acc, row_max, row_sum) in fp32, as the
+reference's ``lax.scan`` does.  It is plain torch because the reference's
+is plain jnp; the numerics are the reference's (probabilities stored in
+bf16 for bf16 inputs, ``NEG_INF`` masking, a bf16 KV cache), which is why
+no library attention call stands in for it.
+
+A KV cache is one per layer, ``KVCache(k, v, length)`` with one ``length``
+shared by every row.  The cache is written in place at ``length`` through
+device-side indices and attended over its whole ``max_len`` under the
+``kv_pos < kv_len`` mask, so a decode step never reads a value back to
+the host.  ``cross_kv`` (whisper) is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import seq_op
+from .blocks import dense_apply, dense_specs, rope
+
+NEG_INF = -1e30
+
+
+def attention_specs(cfg):
+    d, H, Hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": dense_specs(d, H * dh, bias=cfg.qkv_bias),
+        "wk": dense_specs(d, Hk * dh, bias=cfg.qkv_bias),
+        "wv": dense_specs(d, Hk * dh, bias=cfg.qkv_bias),
+        "wo": dense_specs(H * dh, d),
+    }
+
+
+def flash_attention(q, k, v, *, causal: bool = True, kv_block: int = 512,
+                    q_offset=0, kv_len: Optional[torch.Tensor] = None):
+    """Blockwise softmax attention with online renormalization.
+
+    ``q (B, H, nq, dh)``, ``k``/``v (B, Hk, nk, dh)``; query head ``h``
+    reads KV head ``h // (H // Hk)``.  ``q_offset`` is the absolute
+    position of ``q[..., 0, :]`` (causal masking) and ``kv_len`` the
+    number of valid keys (decode masking); either may be a device tensor.
+    Inputs and probabilities are stored in bf16 for bf16 inputs, else in
+    fp32; products, sums and ``acc`` are fp32.
+    """
+    score_dtype = torch.bfloat16 if q.dtype == torch.bfloat16 \
+        else torch.float32
+    B, H, nq, dh = q.shape
+    Hk, nk = k.shape[1], k.shape[2]
+    G = H // Hk
+    # (B, Hk, G * nq, dh): query head h = hk * G + g
+    qg = q.to(score_dtype).reshape(B, Hk, G * nq, dh).float()
+    scale = 1.0 / math.sqrt(dh)
+    blk = min(kv_block, nk)
+    if nk % blk:  # pad the keys to a block multiple (masked out below)
+        pad = blk - nk % blk
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    dev = q.device
+    q_pos = q_offset + torch.arange(nq, device=dev)
+    blk_pos = torch.arange(blk, device=dev)
+    valid_len = kv_len if kv_len is not None else nk
+    acc = torch.zeros((B, Hk, G * nq, dh), dtype=torch.float32, device=dev)
+    mx = torch.full((B, Hk, G, nq), NEG_INF, dtype=torch.float32,
+                    device=dev)
+    sm = torch.zeros((B, Hk, G, nq), dtype=torch.float32, device=dev)
+    for start in range(0, k.shape[2], blk):
+        kv_pos = start + blk_pos
+        kb = k[:, :, start:start + blk].to(score_dtype).float()
+        vb = v[:, :, start:start + blk].to(score_dtype).float()
+        s = ((qg @ kb.transpose(-1, -2)) * scale).view(B, Hk, G, nq, blk)
+        mask = kv_pos[None, :] < valid_len
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        s = torch.where(mask, s, NEG_INF)
+        new_mx = torch.maximum(mx, s.amax(-1))
+        # probabilities stored in score_dtype; sums and acc in fp32
+        p = torch.exp(s - new_mx[..., None]).to(score_dtype).float()
+        corr = torch.exp(mx - new_mx)
+        sm = sm * corr + p.sum(-1)
+        acc = acc * corr.reshape(B, Hk, G * nq, 1) + \
+            p.reshape(B, Hk, G * nq, blk) @ vb
+        mx = new_mx
+    out = acc / sm.reshape(B, Hk, G * nq, 1).clamp_min(1e-30)
+    return out.reshape(B, H, nq, dh).to(q.dtype)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, Hk, max_len, dh)
+    v: torch.Tensor  # (B, Hk, max_len, dh)
+    length: torch.Tensor  # () int32: tokens currently valid, every row
+
+
+def init_kv_cache(B, Hk, max_len, dh, device="cuda") -> KVCache:
+    """An empty cache.  K/V are bf16 whatever the activations are, as the
+    reference's (its ``attn`` record passes no dtype)."""
+    bf16 = torch.bfloat16
+    return KVCache(
+        k=torch.zeros((B, Hk, max_len, dh), dtype=bf16, device=device),
+        v=torch.zeros((B, Hk, max_len, dh), dtype=bf16, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def attention_apply(p, x, cfg, *, positions=None,
+                    cache: Optional[KVCache] = None, use_rope: bool = True):
+    """Causal self-attention sublayer over ``x (B, n, d_model)``.  With a
+    ``cache``, K/V are written into it at ``cache.length`` and
+    ``cache.length`` advances by n, in place; attention then runs over the
+    whole cache.  Returns ``(out, cache)`` (``cache`` None without one)."""
+    B, n, _ = x.shape
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if positions is None:
+        positions = torch.arange(n, device=x.device)[None]
+    q = dense_apply(p["wq"], x).reshape(B, n, H, dh)
+    k = dense_apply(p["wk"], x).reshape(B, n, Hk, dh)
+    v = dense_apply(p["wv"], x).reshape(B, n, Hk, dh)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if cache is None:
+        out = flash_attention(q, k, v)
+    else:
+        max_len = cache.k.shape[2]
+        if n > max_len:
+            raise ValueError(f"{n} tokens do not fit a KV cache of "
+                             f"{max_len}")
+        # the reference's dynamic_update_slice: the start clamps so the
+        # block fits
+        start = cache.length.clamp(0, max_len - n).long()
+        idx = start + torch.arange(n, device=x.device)
+        cache.k.index_copy_(2, idx, k.to(cache.k.dtype))
+        cache.v.index_copy_(2, idx, v.to(cache.v.dtype))
+        q_offset = cache.length.clone()
+        cache.length.add_(n)
+        out = flash_attention(q, cache.k, cache.v, q_offset=q_offset,
+                              kv_len=cache.length)
+    out = out.transpose(1, 2).reshape(B, n, H * dh)
+    return dense_apply(p["wo"], out), cache
+
+
+# --------------------------------------------------------------------------
+# SequenceOp registration: softmax attention as "attn"
+# --------------------------------------------------------------------------
+
+
+def _attn_forward(p, x, cfg, *, state=None, want_state=False,
+                  positions=None):
+    """Train (``state`` None) or prefill/decode (``state`` a ``KVCache``,
+    filled in place at ``state.length``; decode is this forward over one
+    token, so the record needs no ``step``)."""
+    return attention_apply(p, x, cfg, positions=positions, cache=state)
+
+
+def _attn_init_state(cfg, B, device, max_len=0):
+    return init_kv_cache(B, cfg.n_kv_heads, max_len, cfg.head_dim,
+                         device=device)
+
+
+seq_op.register_op(seq_op.SequenceOp(
+    name="attn",
+    specs=attention_specs,
+    forward=_attn_forward,
+    init_state=_attn_init_state,
+    streaming=False,  # the cache grows with the context and its one
+    #   ``length`` is shared by every row, so the engine's per-slot
+    #   continuous batching cannot admit it
+    spec_decodable=False,
+    needs_positions=True,
+    prealloc_state=True,  # prefill fills a preallocated cache
+))

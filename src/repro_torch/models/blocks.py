@@ -1,5 +1,7 @@
-"""Elementary blocks: RMSNorm, dense, embedding, SwiGLU — plain functions on
-parameter dicts (twin of ``repro/models/blocks.py``)."""
+"""Elementary blocks: RMSNorm, dense (with an optional bias), embedding and
+its tied unembedding, RoPE, the MLPs — plain functions on parameter dicts
+(twin of ``repro/models/blocks.py``).  ``layernorm``, ``sinusoidal_pos`` and
+the mesh-aware embedding gather (whisper, multi-GPU) are not ported."""
 
 from __future__ import annotations
 
@@ -19,12 +21,18 @@ def rmsnorm_apply(p, x, eps: float = 1e-5):
     return (y * p["scale"].float()).to(x.dtype)
 
 
-def dense_specs(d_in: int, d_out: int):
-    return {"kernel": Spec((d_in, d_out))}
+def dense_specs(d_in: int, d_out: int, bias: bool = False):
+    s = {"kernel": Spec((d_in, d_out))}
+    if bias:
+        s["bias"] = Spec((d_out,), init="zeros")
+    return s
 
 
 def dense_apply(p, x):
-    return x @ p["kernel"].to(x.dtype)
+    y = x @ p["kernel"].to(x.dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
 
 
 def embed_specs(vocab: int, d: int):
@@ -35,16 +43,48 @@ def embed_apply(p, ids):
     return p["embedding"][ids]
 
 
-def mlp_specs(d: int, d_ff: int):
-    return {
-        "wi_gate": dense_specs(d, d_ff),
-        "wi_up": dense_specs(d, d_ff),
-        "wo": dense_specs(d_ff, d),
-    }
+def unembed_apply(p, x):
+    """Logits through the embedding table (tied embeddings)."""
+    return x @ p["embedding"].to(x.dtype).T
 
 
-def mlp_apply(p, x):
-    """SwiGLU."""
-    return dense_apply(
-        p["wo"], F.silu(dense_apply(p["wi_gate"], x)) * dense_apply(
-            p["wi_up"], x))
+def rope(x, positions, theta: float = 1e4):
+    """Rotary embedding, NeoX style (each head split into halves).  ``x``:
+    ``(..., n, h, dh)`` or ``(..., n, dh)``; ``positions``: ``(..., n)``.
+    The angles are fp32; the result has ``x``'s dtype."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (
+        torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    ang = positions[..., None].float() * freqs  # (..., n, half)
+    if x.ndim == ang.ndim + 1:  # a heads dim
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     -1).to(x.dtype)
+
+
+def mlp_specs(d: int, d_ff: int, act: str):
+    if act == "swiglu":
+        return {
+            "wi_gate": dense_specs(d, d_ff),
+            "wi_up": dense_specs(d, d_ff),
+            "wo": dense_specs(d_ff, d),
+        }
+    if act in ("squared_relu", "gelu", "relu"):
+        return {"wi": dense_specs(d, d_ff), "wo": dense_specs(d_ff, d)}
+    raise ValueError(act)
+
+
+def mlp_apply(p, x, act: str):
+    if act == "swiglu":
+        return dense_apply(p["wo"], F.silu(dense_apply(p["wi_gate"], x))
+                           * dense_apply(p["wi_up"], x))
+    h = dense_apply(p["wi"], x)
+    if act == "squared_relu":
+        h = F.relu(h).square()
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    else:
+        h = F.relu(h)
+    return dense_apply(p["wo"], h)

@@ -34,9 +34,15 @@ class ModelConfig:
     d_ff: int
     vocab: int
     d_head: int = 0  # 0 => d_model // n_heads
-    mixer: str = "hla2"  # the registered SequenceOp; the MLP is SwiGLU
+    mixer: str = "hla2"  # the registered SequenceOp ("softmax" = "attn")
+    mlp: str = "swiglu"  # swiglu | squared_relu | gelu | relu
     hla: HLAConfig = dataclasses.field(default_factory=HLAConfig)
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 1e4
     norm_eps: float = 1e-5
+    # vlm: number of precomputed patch-embedding tokens (stub frontend)
+    vis_tokens: int = 0
     dtype: str = "bfloat16"  # activation/compute dtype; parameters are fp32
     remat: str = "none"  # none | full (per-layer recompute in training)
 

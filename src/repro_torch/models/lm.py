@@ -4,7 +4,11 @@ uniform-stack half of ``repro/models/lm.py``).
 Layer parameters are stacked (leading ``layers`` axis on every leaf, the
 reference's layout) and a Python loop over layers replaces ``lax.scan``.
 Decode states are the op's state tree (``state_tree``: flat for hla2/ahla,
-nested for hla3) with every leaf ``(layers, B, ...)``.
+nested for hla3, a ``KVCache`` for attn) with every leaf ``(layers, B,
+...)``.  A streaming op decodes through its ``step``; a non-streaming one
+(attn) through its ``forward`` over the one token against its state.  An
+op with ``prealloc_state`` (attn) prefills into preallocated states, in
+place.  ``positions`` reach the op only when it ``needs_positions``.
 ``cfg.remat == "full"`` recomputes each layer's activations in the
 backward pass of ``mode="train"`` (``torch.utils.checkpoint``).
 """
@@ -25,6 +29,7 @@ from .blocks import (
     mlp_specs,
     rmsnorm_apply,
     rmsnorm_specs,
+    unembed_apply,
 )
 from .param import Spec, leaf_paths
 from .state_tree import tree_map
@@ -38,7 +43,7 @@ def layer_specs(cfg):
         "ln1": rmsnorm_specs(cfg.d_model),
         "ln2": rmsnorm_specs(cfg.d_model),
         op.param_key: op.specs(cfg),
-        "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
+        "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp),
     }
 
 
@@ -49,33 +54,44 @@ def _stack(tree, L: int):
 
 
 def lm_specs(cfg):
-    return {
+    specs = {
         "embed": embed_specs(cfg.vocab, cfg.d_model),
         "layers": _stack(layer_specs(cfg), cfg.n_layers),
         "final_norm": rmsnorm_specs(cfg.d_model),
-        "unembed": {"kernel": Spec((cfg.d_model, cfg.vocab))},
     }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = {"kernel": Spec((cfg.d_model, cfg.vocab))}
+    return specs
 
 
 def cast_params(params, cfg):
-    """The parameters as the forward pass reads them: dense kernels and the
-    embedding table in ``cfg.dtype`` (the forward casts them to the
-    activation dtype at every use; casting once gives the same values),
-    norm scales and decay logits kept fp32."""
+    """The parameters as the forward pass reads them: dense kernels and
+    biases and the embedding table in ``cfg.dtype`` (the forward casts them
+    to the activation dtype at every use; casting once gives the same
+    values), norm scales and decay logits kept fp32."""
     dt = getattr(torch, cfg.dtype)
     out = {}
     for path, x in leaf_paths(params):
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        cast = path[-1] in ("kernel", "embedding")
+        cast = path[-1] in ("kernel", "bias", "embedding")
         node[path[-1]] = x.to(dt) if cast else x
     return out
 
 
-def lm_init_states(cfg, B: int, device):
-    """Zero decode states, every leaf ``(layers, B, ...)``."""
-    one = seq_op.op_for(cfg).init_state(cfg, B, device)
+def needs_prealloc_states(cfg) -> bool:
+    """True when prefill writes into preallocated states (a KV cache)
+    rather than building its states from scratch: the op's
+    ``prealloc_state`` flag."""
+    return seq_op.op_for(cfg).prealloc_state
+
+
+def lm_init_states(cfg, B: int, device, max_len: int = 0):
+    """Zero decode states, every leaf ``(layers, B, ...)`` (a KV cache's
+    shared ``length`` ``(layers,)``), each layer its own memory.
+    ``max_len`` sizes a KV cache; a streaming state ignores it."""
+    one = seq_op.op_for(cfg).init_state(cfg, B, device, max_len=max_len)
     return tree_map(lambda x: x.expand((cfg.n_layers,) + x.shape).clone(),
                     one)
 
@@ -94,18 +110,39 @@ def _block(p, x, cfg, mix):
     ``_maybe_remat`` around its layer body)."""
     y, st = mix(p, rmsnorm_apply(p["ln1"], x, cfg.norm_eps))
     x = x + y
-    x = x + mlp_apply(p["mlp"], rmsnorm_apply(p["ln2"], x, cfg.norm_eps))
+    x = x + mlp_apply(p["mlp"], rmsnorm_apply(p["ln2"], x, cfg.norm_eps),
+                      cfg.mlp)
     return x, st
 
 
-def _trunk(params, tokens, cfg, states, mode):
-    """Embed, run every layer, final norm.  Returns ``(hidden, states)``."""
+def _trunk(params, tokens, cfg, states, mode, positions=None,
+           vis_embed=None):
+    """Embed (after ``vis_embed``'s tokens, when given), run every layer,
+    final norm.  Returns ``(hidden, states)``."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "decode" and states is None:
         raise ValueError("decode needs states")
     op = seq_op.op_for(cfg)
-    x = embed_apply(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    dt = getattr(torch, cfg.dtype)
+    x = embed_apply(params["embed"], tokens).to(dt)
+    if vis_embed is not None:
+        x = torch.cat([vis_embed.to(dt), x], 1)
+    n = x.shape[1]
+    kw = {}
+    if op.needs_positions:
+        if positions is None:
+            if mode == "decode":
+                raise ValueError(f"decode with {op.name!r} needs the "
+                                 "tokens' positions")
+            positions = torch.arange(n, device=x.device)[None]
+        kw["positions"] = positions
+    # a prealloc op's prefill, and every decode, update states in place
+    prealloc = needs_prealloc_states(cfg)
+    in_place = mode == "decode" or (mode == "prefill" and prealloc)
+    if mode == "prefill" and states is None and prealloc:
+        # room for the prompt and a margin of decode steps
+        states = lm_init_states(cfg, x.shape[0], x.device, max_len=n + 64)
     # under remat a layer's activations are recomputed in backward
     remat = (mode == "train" and cfg.remat == "full"
              and torch.is_grad_enabled())
@@ -113,47 +150,55 @@ def _trunk(params, tokens, cfg, states, mode):
     for l in range(cfg.n_layers):
         p = _layer(params["layers"], l)
         st = None if states is None else tree_map(lambda s: s[l], states)
-        if mode == "decode":
+        if mode == "decode" and op.streaming:
             mix = lambda pl, h, st=st: op.step(  # noqa: E731
-                pl[op.param_key], h, st, cfg)
+                pl[op.param_key], h, st, cfg, **kw)
         else:
             mix = lambda pl, h, st=st: op.forward(  # noqa: E731
                 pl[op.param_key], h, cfg, state=st,
-                want_state=mode == "prefill")
+                want_state=mode != "train", **kw)
         x, st = checkpoint(_block, p, x, cfg, mix, use_reentrant=False) \
             if remat else _block(p, x, cfg, mix)
-        if mode == "prefill":
+        if mode == "prefill" and not in_place:
             new.append(st)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if mode == "train":
         return x, None
-    if mode == "decode":
+    if in_place:
         return x, states  # updated in place, layer by layer
     return x, tree_map(lambda *per_layer: torch.stack(per_layer), *new)
 
 
-def _unembed(params, x):
+def _unembed(params, x, cfg):
+    if cfg.tie_embeddings:
+        return unembed_apply(params["embed"], x)
     return x @ params["unembed"]["kernel"].to(x.dtype)
 
 
-def lm_apply(params, tokens, cfg, *, states=None, mode: str = "train"):
-    """``tokens (B, n)`` -> ``(logits (B, n, vocab), states)``.
+def lm_apply(params, tokens, cfg, *, states=None, positions=None,
+             mode: str = "train", vis_embed=None):
+    """``tokens (B, n)`` -> ``(logits (B, nv + n, vocab), states)``, ``nv``
+    the ``vis_embed (B, nv, d_model)`` tokens prepended (none by default).
 
     ``train``: full sequence, no state (``states`` None on return);
     ``prefill``: full sequence resumed from ``states`` (or zero), returns
-    the new stacked decode states; ``decode``: one token per row,
+    the new stacked decode states (a KV cache: filled in place, allocated
+    for ``n + 64`` tokens when not given); ``decode``: one token per row,
     **updates ``states`` in place** and returns the same object.
+    ``positions`` (default ``arange(n)``; decode must pass them) reach an
+    op that needs them.
     """
-    x, states = _trunk(params, tokens, cfg, states, mode)
-    return _unembed(params, x), states
+    x, states = _trunk(params, tokens, cfg, states, mode, positions,
+                       vis_embed)
+    return _unembed(params, x, cfg), states
 
 
-def lm_prefill(params, tokens, cfg, *, states=None):
-    """Chunk-parallel prompt prefill for serving admission: each layer is ONE
-    chunkwise kernel launch.  Returns ``(last_logits (B, vocab), states)``,
-    the logits of the final prompt position only."""
-    x, states = _trunk(params, tokens, cfg, states, "prefill")
-    return _unembed(params, x[:, -1]), states
+def lm_prefill(params, tokens, cfg, *, states=None, positions=None):
+    """Chunk-parallel prompt prefill for serving admission: each HLA layer
+    is ONE chunkwise kernel launch.  Returns ``(last_logits (B, vocab),
+    states)``, the logits of the final prompt position only."""
+    x, states = _trunk(params, tokens, cfg, states, "prefill", positions)
+    return _unembed(params, x[:, -1], cfg), states
 
 
 def lm_score_block(params, tokens, cfg, *, states):
@@ -166,18 +211,22 @@ def lm_score_block(params, tokens, cfg, *, states):
     ``logits[:, j]`` is the next-token distribution after ``tokens[:,
     :j+1]``, and ``new_states`` (new tensors) have consumed the whole block.
     ``states`` is only read: the chunk kernels take their carry read-only.
-    Takes no ``positions``, unlike the reference: the port's ops carry no
-    positional encoding (hla-1b has none), so ``lm_apply`` has none either.
+    Takes no ``positions``, unlike the reference: no spec-decodable op of
+    the port consumes them (``attn`` is not spec-decodable).
     """
     return lm_apply(params, tokens, cfg, states=states, mode="prefill")
 
 
-def lm_loss(params, tokens, labels, cfg, *, denom=None):
-    """Mean next-token cross-entropy in fp32 over ``mode="train"`` logits;
-    labels < 0 are ignored.  ``denom`` overrides the normaliser (default:
-    this batch's valid-token count).  Returns ``(loss, ce)`` (the same
-    number: the port's stack has no auxiliary loss)."""
-    logits, _ = lm_apply(params, tokens, cfg, mode="train")
+def lm_loss(params, tokens, labels, cfg, *, vis_embed=None, denom=None):
+    """Mean next-token cross-entropy in fp32 over ``mode="train"`` logits
+    of the token positions (``vis_embed``'s are sliced off); labels < 0 are
+    ignored.  ``denom`` overrides the normaliser (default: this batch's
+    valid-token count).  Returns ``(loss, ce)`` (the same number: the
+    port's stack has no auxiliary loss)."""
+    logits, _ = lm_apply(params, tokens, cfg, mode="train",
+                         vis_embed=vis_embed)
+    if vis_embed is not None:
+        logits = logits[:, vis_embed.shape[1]:]
     logits = logits.float()
     mask = labels >= 0
     nll = F.cross_entropy(logits.flatten(0, 1), labels.clamp_min(0).flatten()

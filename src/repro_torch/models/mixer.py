@@ -64,9 +64,9 @@ HLA_EPS = 1e-6
 def mixer_specs(cfg):
     d, H, Hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
-        "wq": dense_specs(d, H * dh),
-        "wk": dense_specs(d, Hk * dh),
-        "wv": dense_specs(d, Hk * dh),
+        "wq": dense_specs(d, H * dh, bias=cfg.qkv_bias),
+        "wk": dense_specs(d, Hk * dh, bias=cfg.qkv_bias),
+        "wv": dense_specs(d, Hk * dh, bias=cfg.qkv_bias),
         "wo": dense_specs(H * dh, d),
         "out_scale": Spec((H, dh), init="ones"),
     }
@@ -205,7 +205,8 @@ def _linattn_step(state, q1, k1, v1, gamma, hc):
 
 
 def _register(name, core_fwd, core_step, core_init, fused=False):
-    def init_state(cfg, B, device):
+    def init_state(cfg, B, device, max_len=0):
+        del max_len  # a streaming state does not grow with the context
         dh = cfg.head_dim
         return core_init((B, cfg.n_heads), dh, dh, torch.float32, device)
 

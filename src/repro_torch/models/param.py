@@ -23,7 +23,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Spec:
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | ones | embed | constant
+    init: str = "normal"  # normal | ones | zeros | embed | constant
     scale: Optional[float] = None  # override; default fan-in scaling
     const: float = 0.0  # for init == "constant"
 
@@ -64,6 +64,8 @@ def _init_leaf(spec: Spec, gen: torch.Generator, device) -> torch.Tensor:
     f32 = torch.float32
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=f32, device=device)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=f32, device=device)
     if spec.init == "constant":
         return torch.full(spec.shape, spec.const, dtype=f32, device=device)
     x = torch.empty(spec.shape, dtype=f32, device=device)

@@ -7,7 +7,8 @@ engine and the cost model program against the record only, and a layer
 keeps the record's parameters under its ``param_key``.  State trees are
 whatever ``init_state`` returns (``models/state_tree.py`` walks them).
 The port registers the HLA family, ``hla2``, ``ahla``, ``hla3``,
-``hla3_paper`` and ``linattn`` (``models/mixer.py``).
+``hla3_paper`` and ``linattn`` (``models/mixer.py``), and softmax
+attention, ``attn`` (``models/attention.py``).
 
 Capability flags (the reference's): ``streaming`` (a constant-size
 per-slot decode state, so slots batch continuously; requires a ``step``),
@@ -81,7 +82,8 @@ def register_op(op: SequenceOp) -> SequenceOp:
 
 
 def _ensure_builtins() -> None:
-    from . import mixer  # noqa: F401  (registers the HLA family)
+    # imported for their register_op side effect
+    from . import attention, mixer  # noqa: F401
 
 
 def _unknown(name) -> SequenceOpError:

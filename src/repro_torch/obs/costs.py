@@ -1,11 +1,12 @@
 """Analytic per-op cost model for the port's ``SequenceOp`` records.
 
 Twin of ``repro/obs/costs.py`` for the records the port registers: the
-HLA family, ``linattn``, ``hla2``, ``ahla``, ``hla3`` and ``hla3_paper``.  One question, answered without running anything: *how
-many FLOPs and how many HBM bytes does operator X move per token* on each
-of its execution paths: ``train_fwd`` / ``train_bwd`` (full-sequence
-chunkwise), ``train_step`` (both), ``prefill`` (same chunk math, one call)
-and ``decode_step`` (the O(1) state recurrence).  Dividing a measured tok/s
+HLA family (``linattn``, ``hla2``, ``ahla``, ``hla3``, ``hla3_paper``) and
+softmax attention (``attn``).  One question, answered without running
+anything: *how many FLOPs and how many HBM bytes does operator X move per
+token* on each of its execution paths: ``train_fwd`` / ``train_bwd``
+(full-sequence chunkwise), ``train_step`` (both), ``prefill`` (same chunk
+math, one call) and ``decode_step`` (the state recurrence).  Dividing a measured tok/s
 by these numbers gives achieved FLOP/s, and ``obs.perf`` turns that into
 roofline utilization.
 
@@ -119,6 +120,13 @@ def _fwd_hla3_paper(cfg, c, n):
     return 1.5 * _fwd_hla2(cfg, c, n) + H * (4.0 * d * d * dv / c)
 
 
+def _fwd_attn(cfg, c, n):
+    # scores + apply over the causal context (~n/2 on average, counted as
+    # the full n: the blocks compute the padded tile)
+    H, d, dv = _dims(cfg)
+    return H * (2 * n * d + 2 * n * dv)
+
+
 def _dec_linattn(cfg, L):
     H, d, dv = _dims(cfg)
     return H * (4 * d * dv + 2 * d)
@@ -142,14 +150,20 @@ def _dec_hla3_paper(cfg, L):
     return 1.5 * _dec_hla2(cfg, L)
 
 
+def _dec_attn(cfg, L):
+    # reads the whole KV cache: O(L) a step, the paper's contrast case
+    H, d, dv = _dims(cfg)
+    return H * (2 * L * d + 2 * L * dv)
+
+
 _FWD_STATE_FLOPS: Dict[str, Callable] = {
     "linattn": _fwd_linattn, "hla2": _fwd_hla2, "ahla": _fwd_ahla,
-    "hla3": _fwd_hla3, "hla3_paper": _fwd_hla3_paper,
+    "hla3": _fwd_hla3, "hla3_paper": _fwd_hla3_paper, "attn": _fwd_attn,
 }
 
 _DEC_STATE_FLOPS: Dict[str, Callable] = {
     "linattn": _dec_linattn, "hla2": _dec_hla2, "ahla": _dec_ahla,
-    "hla3": _dec_hla3, "hla3_paper": _dec_hla3_paper,
+    "hla3": _dec_hla3, "hla3_paper": _dec_hla3_paper, "attn": _dec_attn,
 }
 
 
@@ -168,15 +182,13 @@ def record_param_stats(op, cfg):
 
 def record_state_bytes(op, cfg, *, max_len: int = 64) -> int:
     """Decode-state bytes per sequence, summed over the leaves of the
-    record's ``init_state`` built on the meta device (no memory).
-    ``max_len`` is the reference's argument: the port's records are
-    streaming, so their state does not depend on it."""
+    record's ``init_state`` for ``max_len`` tokens, built on the meta
+    device (no memory)."""
     import torch
 
-    del max_len
     from ..models.state_tree import leaves
 
-    state = op.init_state(cfg, 1, torch.device("meta"))
+    state = op.init_state(cfg, 1, torch.device("meta"), max_len=max_len)
     return int(sum(x.numel() * x.element_size() for x in leaves(state)))
 
 

@@ -216,9 +216,15 @@ class Engine:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') needs a CUDA device")
         op = seq_op.op_for(cfg)  # unknown mixers fail here, not at admission
+        # admissibility is the record's capability: a streaming op's
+        # per-slot state batches continuously; a KV cache's one length is
+        # shared by every row
         if not op.streaming:
-            raise ValueError(f"Engine serves streaming-state ops; op "
-                             f"{op.name!r} has no constant-size slot state")
+            raise ValueError(
+                "Engine serves streaming-state ops "
+                f"{seq_op.streaming_op_names()}; op {op.name!r} decodes "
+                "from a KV cache whose pooled scalar length is shared "
+                "across slots — continuous batching needs per-slot lengths")
         if spec is not None and not op.spec_decodable:
             raise ValueError(
                 f"op {op.name!r} is not registered spec_decodable: its state "

@@ -358,7 +358,7 @@ def test_get_config_mixer_override_matches_reference(reduced):
     assert seq_op.op_for(cfg).name == "ahla"
     assert get_config("hla-1b", reduced=reduced, mixer="hla2") == \
         get_config("hla-1b", reduced=reduced)
-    bad = get_config("hla-1b", reduced=reduced, mixer="softmax")
+    bad = get_config("hla-1b", reduced=reduced, mixer="softmx")
     with pytest.raises(KeyError, match="unknown sequence op"):
         seq_op.op_for(bad)
 

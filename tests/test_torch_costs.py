@@ -185,3 +185,56 @@ def test_family_analytic_flops_within_2x_of_counted(mixer):
     counted = costs.measured_op_flops(mixer, cfg, seq_len=64)["per_token"]
     ratio = analytic.flops_per_token / counted
     assert 0.5 <= ratio <= 2.0, (analytic.flops_per_token, counted)
+
+
+ARCHS = ("codeqwen1.5-7b", "deepseek-67b", "internvl2-2b", "nemotron-4-15b",
+         "qwen2-72b")
+
+
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_attn_costs_match_reference(arch, reduced):
+    """``op_cost("attn")`` and ``model_cost`` of each dense public config
+    equal the reference's in every mode, field by field; the KV cache's
+    bytes grow with the context and are the reference's ``eval_shape``
+    account (bf16 K/V and an int32 length)."""
+    ref_cfg = ref_get_config(arch, reduced=reduced)
+    cfg = get_config(arch, reduced=reduced)
+    for mode in costs.MODES:
+        for seq_len, batch in ((1, 1), (64, 1), (300, 4), (2048, 2)):
+            kw = dict(mode=mode, seq_len=seq_len, batch=batch)
+            _same(costs.op_cost("attn", cfg, **kw),
+                  ref_costs.op_cost("attn", ref_cfg, **kw))
+            _same(costs.model_cost(cfg, **kw),
+                  ref_costs.model_cost(ref_cfg, **kw))
+    op, ref_op = seq_op.get_op("attn"), ref_seq_op.get_op("attn")
+    sizes = [costs.record_state_bytes(op, cfg, max_len=n) for n in (16, 64)]
+    assert sizes == [ref_costs.record_state_bytes(ref_op, ref_cfg, max_len=n)
+                     for n in (16, 64)]
+    assert sizes[1] - 4 == 4 * (sizes[0] - 4) == \
+        4 * 2 * 2 * cfg.n_kv_heads * 16 * cfg.head_dim
+
+
+@pytest.mark.parametrize("arch, mixer", [("codeqwen1.5-7b", "hla2"),
+                                         ("codeqwen1.5-7b", "ahla"),
+                                         ("qwen2-72b", "hla2")])
+def test_dropin_costs_match_reference(arch, mixer):
+    """An HLA mixer in a public config (qkv biases in its projections): the
+    whole LM's cost equals the reference's in every mode."""
+    ref_cfg = ref_get_config(arch, mixer=mixer)
+    cfg = get_config(arch, mixer=mixer)
+    for mode in costs.MODES:
+        kw = dict(mode=mode, seq_len=2048, batch=2)
+        _same(costs.model_cost(cfg, **kw), ref_costs.model_cost(ref_cfg, **kw))
+
+
+def test_attn_analytic_flops_within_2x_of_counted_and_grow_with_context():
+    cfg = get_config("codeqwen1.5-7b", reduced=True)
+    analytic = costs.op_cost("attn", cfg, mode="train_fwd", seq_len=64)
+    counted = costs.measured_op_flops("attn", cfg, seq_len=64)["per_token"]
+    ratio = analytic.flops_per_token / counted
+    assert 0.5 <= ratio <= 2.0, (analytic.flops_per_token, counted)
+    short = costs.op_cost("attn", cfg, mode="decode_step", seq_len=64)
+    long = costs.op_cost("attn", cfg, mode="decode_step", seq_len=4096)
+    assert long.flops_per_token > short.flops_per_token
+    assert long.state_bytes > short.state_bytes

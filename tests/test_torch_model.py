@@ -141,7 +141,7 @@ def test_from_jax_params_rejects_mismatched_trees(model):
 
 
 def test_unknown_mixer_is_rejected():
-    cfg = get_config("hla-1b", reduced=True).replace(mixer="softmax")
+    cfg = get_config("hla-1b", reduced=True).replace(mixer="softmx")
     with pytest.raises(KeyError, match="unknown sequence op"):
         lm.lm_specs(cfg)
 

@@ -49,7 +49,7 @@ def _close(got, want, tol=TOL):
 
 
 def test_hla_family_registered():
-    assert seq_op.registered_op_names() == FAMILY
+    assert seq_op.registered_op_names() == ("ahla", "attn") + FAMILY[1:]
     assert seq_op.streaming_op_names() == FAMILY
     assert set(FAMILY) <= set(ref_seq_op.registered_op_names())
 
@@ -73,12 +73,17 @@ def test_unknown_op_lists_registry_and_suggests():
         seq_op.op_for(cfg)
 
 
-def test_softmax_is_spelt_attn_and_not_registered_yet():
-    """``"softmax"`` names ``"attn"`` (not ported): no silent fallback."""
-    cfg = get_config("hla-1b", reduced=True, mixer="softmax")
-    with pytest.raises(seq_op.SequenceOpError, match="'softmax'"):
-        seq_op.op_name_for(cfg)
+def test_softmax_is_spelt_attn():
+    """``"softmax"`` resolves to the registered ``attn`` record; an unknown
+    name still raises with the registry listed (no silent fallback)."""
+    cfg = get_config("codeqwen1.5-7b", reduced=True)
+    assert cfg.mixer == "softmax"
+    assert seq_op.op_name_for(cfg) == "attn"
+    assert seq_op.op_for(cfg) is seq_op.get_op("attn")
     assert seq_op.op_name_for(cfg.replace(mixer="hla3")) == "hla3"
+    with pytest.raises(seq_op.SequenceOpError, match="registered ops") as ei:
+        seq_op.op_name_for(cfg.replace(mixer="softmx"))
+    assert "'attn'" in str(ei.value)
 
 
 def test_streaming_registration_requires_step():
