@@ -18,9 +18,12 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    carry, which must be left as it was), the forwards' checkpoints and
    the backwards at the train phase's (32 rows x 2048 tokens), the
    backwards' normalize (and HLA2's lam) cases at d = 16 and across the
-   column tiles of d = 128; and at phase 12's rows (codeqwen1.5-7b's 32
+   column tiles of d = 128; at phase 12's rows (codeqwen1.5-7b's 32
    heads): the forwards at 32 rows, the steps at 128, HLA2's backward and
-   forward with checkpoints at 64 rows x 2048 tokens;
+   forward with checkpoints at 64 rows x 2048 tokens; and at phase 13's
+   (granite-moe-3b-a800m's 24 heads of d = dv = 64): the forwards at 24
+   rows, the steps at 96, both backwards and forwards with checkpoints at
+   48 rows x 2048 and 300 tokens;
 3. check the port against its plain path on a small model (card vs CPU):
    prefill + decode logits, and the training loss and every parameter's
    gradient, with either mixer; and at full width that prefill(L) + one
@@ -104,8 +107,9 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    fp32: speculative greedy with the always-wrong drafter equals plain
    greedy, and phase 8's requests through a prefix cache (every admission
    a hit) equal their cold streams, an entry holding
-   ``state_bytes_for(cfg)`` bytes; (d) 3 AdamW steps of ``hla3`` at 2 x
-   2048 with the config's remat, bf16 activations: the loss falls.  Every
+   ``state_bytes_for(cfg)`` bytes; (d) 3 AdamW steps of ``hla3`` cut to
+   12 layers at 2 x 2048 with the config's remat, bf16 activations: the
+   loss falls.  Every
    run's launch counts are zeroed before it and must read 0 after;
 12. (runs after phase 11) softmax attention (``attn``, plain torch) and the
    dense public configs, each at full width: (a) codeqwen1.5-7b (32
@@ -131,11 +135,32 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    forward (with checkpoints) and 12 backward launches at 64 rows; (e)
    nemotron-4-15b (squared ReLU, GQA 48/8, vocabulary 256,000) at 2
    layers: an fp32 prefill of 128 tokens and 8 decode steps equal the
-   cache prefill over 136, with (b)'s readings and planted faults.  No ``attn`` run launches any of the six
-   kernels;
+   cache prefill over 136, with (b)'s readings and planted faults.  No
+   ``attn`` run launches any of the six kernels;
+13. (runs after phase 12) GLA and the mixture-of-experts configs, each at
+   full width: (a) granite-moe-3b-a800m (32 layers, 24 heads of 64, 8 KV
+   heads, 40 experts top 8, tied embeddings) with ``hla2`` and then
+   ``ahla`` in place of its attention: phase 4's 8 requests in bf16
+   through ``Engine``, all ``ok``, exactly 32 chunk launches per
+   admission and 32 step launches per decode step, no plain version, and
+   a profile of decode steps (launches, aten ops, device busy); (b)
+   before each, in fp32 with the capacity factor at ``n_experts / top_k``
+   (no pair dropped), prefill(L) + a decode step equals prefill(L + 1)
+   and both routes choose the same experts for every (token, k) in every
+   layer; (c) its own ``attn``, no pair dropped, as phase 12 (b); (d)
+   3 AdamW steps at 2 x 2048 at full depth with its ``remat="full"``,
+   with ``attn``, ``hla2`` and ``ahla``: loss and aux each step, the loss
+   falls, 64 + 32 launches a step with an HLA mixer; (e)
+   qwen3-moe-30b-a3b (32 heads of 128, 4 KV heads, 128 experts top 8) cut
+   to ``QWEN3_LAYERS`` layers with ``hla2``: (b)'s identity, then (a)'s
+   requests, 12 + 12 launches; (f) granite's four entry points' contracts
+   with ``hla2`` (1 / 1 / 1 or 2 / 0 host transfers); (g) hla-1b with
+   ``gla`` (plain torch): phase 4's requests and one AdamW step at 2 x
+   2048, none of the six kernels launched;
 7. time each kernel and its plain version at its path's shapes (the step
    kernels also at 16 rows, one slot; the chunk forwards also at the
-   verify shape, ``[verify]``).
+   verify shape, ``[verify]``; all six also at phase 13's d = 64 shapes,
+   ``[d=64]``).
 
 The second-to-last line is the ``kernels`` JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -146,6 +171,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import re
 import statistics
@@ -581,7 +607,7 @@ def check_small_model(device, mixer=None):
     for p, dev in ((p_dev, device), (p_cpu, "cpu")):
         t = tok.to(dev)
         last, st = lm.lm_prefill(p, t[:, :-1], cfg)
-        step, _ = lm.lm_apply(p, t[:, -1:], cfg, states=st, mode="decode")
+        step, _, _ = lm.lm_apply(p, t[:, -1:], cfg, states=st, mode="decode")
         out.append((last.cpu(), step[:, -1].cpu()))
     e = max(rel_err(a, b) for a, b in zip(*out))
     log(f"reduced hla-1b ({cfg.mixer}) fp32, prefill 149 + 1 step: {device} "
@@ -596,7 +622,7 @@ def _loss_grads(params, batch, cfg):
     from repro_torch.distributed.steps import accumulate_grads
     from repro_torch.models.param import leaf_paths
 
-    loss, _, grads = accumulate_grads(params, batch, cfg)
+    loss, _, _, grads = accumulate_grads(params, batch, cfg)
     return loss, [g for _, g in leaf_paths(grads)]
 
 
@@ -640,8 +666,41 @@ def _to(tree, device):
     return tree.to(device)
 
 
+@contextlib.contextmanager
+def _routes():
+    """Every MoE layer's expert ids (``gate_e``) computed inside, in call
+    order."""
+    from repro_torch.models import moe
+
+    made, seen = moe.route, []
+
+    def route(*args, **kw):
+        out = made(*args, **kw)
+        seen.append(out[2])
+        return out
+
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = made
+
+
+def _no_drop(cfg):
+    """``cfg`` with an MoE capacity factor of ``n_experts / top_k``, so an
+    expert's ``C`` slots hold every token of a row and no pair drops (the
+    reference's treatment when it compares decode with a forward: a
+    one-token decode never drops).  Without MoE, ``cfg``."""
+    if cfg.moe is None:
+        return cfg
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
 def check_identity(params, cfg, L=300):
-    """prefill(L) + decode step == prefill(L + 1) on the last logits."""
+    """prefill(L) + decode step == prefill(L + 1) on the last logits; with
+    MoE also the routing agreement, the share of (token, k) expert ids, in
+    every layer, that the two routes choose alike (must be all)."""
     import torch
 
     from repro_torch.models import lm
@@ -649,20 +708,37 @@ def check_identity(params, cfg, L=300):
     dev = params["embed"]["embedding"].device
     tok = torch.randint(2, cfg.vocab, (1, L + 1), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(3))
-    _, st = lm.lm_prefill(params, tok[:, :L], cfg)
-    step, _ = lm.lm_apply(params, tok[:, L:], cfg, states=st, mode="decode")
-    full, _ = lm.lm_prefill(params, tok, cfg)
+    with _routes() as seen:
+        _, st = lm.lm_prefill(params, tok[:, :L], cfg)
+        step, _, _ = lm.lm_apply(params, tok[:, L:], cfg, states=st,
+                                 mode="decode")
+        full, _ = lm.lm_prefill(params, tok, cfg)
     step = step[:, -1]
     if step.shape != full.shape or not bool(step.isfinite().all()):
         raise AssertionError(f"bad logits {tuple(step.shape)}")
     e = rel_err(step, full)
+    routing = ""
+    agree = 1.0
+    if cfg.moe is not None:
+        n = cfg.n_layers
+        split, one = seen[:n], zip(seen[n:2 * n], seen[2 * n:3 * n])
+        same = sum(int((torch.cat([a, b], 1) == c).sum())
+                   for a, (b, c) in zip(split, one))
+        total = sum(c.numel() for c in seen[2 * n:3 * n])
+        agree = same / total
+        routing = (f", routing agreement {same}/{total} (token, k) expert "
+                   f"ids = {agree:.2%} (capacity factor "
+                   f"{cfg.moe.capacity_factor:g})")
     log(f"{cfg.name} ({cfg.mixer}) {cfg.n_layers} layers d_model "
         f"{cfg.d_model} {cfg.dtype}: prefill({L}) + step vs prefill({L + 1}) "
         "logits rel "
         f"{e:.2e} (tol {TOL_LOGITS:.0e}), argmax "
-        f"{int(step.argmax())} vs {int(full.argmax())}")
+        f"{int(step.argmax())} vs {int(full.argmax())}{routing}")
     if not e <= TOL_LOGITS:
         raise AssertionError("prefill + step != longer prefill")
+    if agree != 1.0:
+        raise AssertionError("the two routes chose other experts")
+    return e, agree
 
 
 # --------------------------------------------------------------------------
@@ -952,8 +1028,8 @@ def route_logits(params, cfg, prompt, toks):
     t = torch.as_tensor(toks, dtype=torch.long, device=dev)[None]
     step, st = lm.lm_prefill(params, p, cfg)
     for j in range(t.shape[1]):
-        logits, _ = lm.lm_apply(params, t[:, j:j + 1], cfg, states=st,
-                                mode="decode")
+        logits, _, _ = lm.lm_apply(params, t[:, j:j + 1], cfg, states=st,
+                                   mode="decode")
         step = logits[:, -1]
     chunk, _ = lm.lm_prefill(params, torch.cat([p, t], 1), cfg)
     return step[0].float(), chunk[0].float()
@@ -1333,8 +1409,8 @@ def split_route_logits(params, cfg, prompt, toks, hit, aligned):
 
     def steps(last, st):
         for j in range(t.shape[1]):
-            logits, _ = lm.lm_apply(params, t[:, j:j + 1], cfg, states=st,
-                                    mode="decode")
+            logits, _, _ = lm.lm_apply(params, t[:, j:j + 1], cfg, states=st,
+                                       mode="decode")
             last = logits[:, -1]
         return last[0].float()
 
@@ -1656,7 +1732,7 @@ def train(device, cfg, steps=5, batch=2, seq=2048):
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    losses, norms, step_s = [], [], []
+    losses, norms, auxes, step_s = [], [], [], []
 
     def run():
         nonlocal params, state
@@ -1666,29 +1742,32 @@ def train(device, cfg, steps=5, batch=2, seq=2048):
             losses.append(float(m["loss"]))  # waits for the step
             step_s.append(time.perf_counter() - t0)
             norms.append(float(m["grad_norm"]))
+            auxes.append(float(m["aux"]))
 
     _, launches = _count_train(device, cfg, run)
     peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
     p50 = float(np.percentile(step_s, 50))
     vis = f" (+ {cfg.vis_tokens} vis_embed)" if cfg.vis_tokens else ""
+    aux = f" | aux {' '.join(f'{x:.5f}' for x in auxes)}" if cfg.moe else ""
     log(f"trained {cfg.name} ({cfg.mixer}; {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.dtype} activations, fp32 parameters and "
         f"moments, remat {cfg.remat}) for {steps} AdamW steps on one "
         f"{batch} x {seq}{vis} batch: loss "
-        f"{' '.join(f'{x:.4f}' for x in losses)} | grad norm "
+        f"{' '.join(f'{x:.4f}' for x in losses)}{aux} | grad norm "
         f"{' '.join(f'{x:.3f}' for x in norms)} | step "
         f"{' '.join(f'{x:.3f}' for x in step_s)} s | step p50 {p50:.3f}s "
         f"| {batch * seq / p50:.0f} tok/s | peak memory {peak:.2f} GiB | "
         f"launches {launches}")
     if not all(np.isfinite(losses + norms)):
         raise AssertionError("non-finite loss or gradient norm")
-    if not losses[-1] < losses[0]:
+    if steps > 1 and not losses[-1] < losses[0]:
         raise AssertionError("the loss did not fall on the repeated batch")
     want = _want_train(cfg, steps)
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, want {want}")
     return launches, dict(step_p50_s=p50, tok_s=batch * seq / p50,
-                          peak_gib=peak, losses=losses, batch=batch, seq=seq)
+                          peak_gib=peak, losses=losses, auxes=auxes,
+                          batch=batch, seq=seq)
 
 
 def train_phase(device, mixer="hla2"):
@@ -1739,7 +1818,7 @@ def _grads_phase(device, cfg, params, batch, microbatches, label):
         torch.cuda.reset_peak_memory_stats(device)
         held = torch.cuda.memory_allocated(device) / 2**30
     t0 = time.perf_counter()
-    (loss, _, grads), launches = _count_train(
+    (loss, _, _, grads), launches = _count_train(
         device, cfg, lambda: accumulate_grads(params, batch, cfg,
                                               microbatches))
     dt = time.perf_counter() - t0
@@ -2299,7 +2378,9 @@ def family_phase(device):
               for m in FAMILY}
     entry = family_exact_serving(params, cfg.replace(mixer="hla3"), device)
     del params
-    _, trained = train(device, cfg.replace(mixer="hla3"), steps=3)
+    # (d) at 12 of the 24 layers, to keep the whole script near 600 s
+    _, trained = train(device, cfg.replace(mixer="hla3", n_layers=12),
+                       steps=3)
     log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
     return dict(served=served, trained=trained, hla3_entry_bytes=entry)
 
@@ -2342,23 +2423,28 @@ def _free(device):
         torch.cuda.empty_cache()
 
 
-def dropin_serve(device, cfg):
-    """(a) ``cfg`` (codeqwen1.5-7b) with ``hla2`` and then ``ahla`` in
-    place of its attention (one set of weights: the two share a layout):
-    fp32 prefill(L) + a decode step equals prefill(L + 1), then phase 4's
-    8 requests in bf16 through ``Engine``, every one ``ok``, exactly
-    ``n_layers`` chunk launches per admission and step launches per decode
-    step, no plain version; ``Engine`` refuses the config's own ``attn``.
-    Returns each mixer's summary numbers."""
+def dropin_serve(device, cfg, mixers=("hla2", "ahla"),
+                 tag="profile_codeqwen"):
+    """(a) ``cfg`` (codeqwen1.5-7b; phase 13: the MoE configs) with each of
+    ``mixers`` in place of its attention (one set of weights: they share a
+    layout): fp32 prefill(L) + a decode step equals prefill(L + 1) (an MoE
+    config with no pair dropped, ``_no_drop``, and all its routes alike),
+    then phase 4's 8 requests in bf16 through ``Engine``, every one
+    ``ok``, exactly ``n_layers`` chunk launches per admission and step
+    launches per decode step, no plain version, and with ``hla2`` a
+    profile of decode steps (``tag``, none if None); ``Engine`` refuses the
+    config's own ``attn``.  Returns each mixer's summary numbers (with the
+    identity's logit error and routing agreement)."""
     from repro_torch.models import lm
     from repro_torch.models.param import init_params
     from repro_torch.serving.engine import Engine
 
     params = init_params(lm.lm_specs(cfg.replace(mixer="hla2")), 0, device)
     out = {}
-    for mixer in ("hla2", "ahla"):
+    for mixer in mixers:
         mcfg = cfg.replace(mixer=mixer)
-        check_identity(params, mcfg.replace(dtype="float32"))
+        e_id, agree = check_identity(
+            params, _no_drop(mcfg).replace(dtype="float32"))
         plain_calls, restore = _count_plain_calls(SERVE_PLAINS)
         try:
             launches, served = serve(params, mcfg.replace(dtype="bfloat16"),
@@ -2367,12 +2453,13 @@ def dropin_serve(device, cfg):
             restore()
         if device.type == "cuda" and plain_calls:
             raise AssertionError(f"plain versions called: {plain_calls}")
-        if mixer == "hla2" and device.type == "cuda":
+        if mixer == "hla2" and device.type == "cuda" and tag:
             # where a 32-layer decode step's time goes (phase 4b's method)
             profile_decode(params, mcfg.replace(dtype="bfloat16"), device,
-                           tag="profile_codeqwen")
+                           tag=tag)
         served.pop("streams")
-        out[mixer] = dict(served, launches=launches)
+        out[mixer] = dict(served, launches=launches, identity=e_id,
+                          routing=agree)
         _free(device)
     try:
         Engine(cfg, params, device=device)
@@ -2450,7 +2537,7 @@ def _kv_parted(a, b, prompt, n):
     return out
 
 
-def attn_decode(device, cfg, prompt=300, steps=16, bf16=True):
+def attn_decode(device, cfg, prompt=300, steps=16, bf16=True, tag=None):
     """(b), (e): ``cfg`` with softmax attention, fp32 parameters, 2 rows:
     an fp32 ``lm_prefill`` of ``prompt`` tokens into a KV cache, then
     ``steps`` greedy decode steps (``lm_apply(mode="decode",
@@ -2478,7 +2565,7 @@ def attn_decode(device, cfg, prompt=300, steps=16, bf16=True):
     prompt_tok = torch.randint(2, cfg.vocab, (B, prompt), device=device,
                                generator=gen)
     cuda = device.type == "cuda"
-    tag = "b" if bf16 else "e"
+    tag = tag or ("b" if bf16 else "e")
 
     def decode(c, p, n_steps, feed=None, pos_shift=0, len_shift=0):
         """Prefill, then ``n_steps`` decode steps, greedy or fed ``feed``'s
@@ -2497,8 +2584,8 @@ def attn_decode(device, cfg, prompt=300, steps=16, bf16=True):
             pos = torch.full((B, 1), prompt + j + pos_shift, device=device)
             _sync(device)
             t0 = time.perf_counter()
-            lg, st = lm.lm_apply(p, tok, c, states=st, positions=pos,
-                                 mode="decode")
+            lg, st, _ = lm.lm_apply(p, tok, c, states=st, positions=pos,
+                                    mode="decode")
             _sync(device)
             secs.append(time.perf_counter() - t0)
             fed.append(tok)
@@ -2512,10 +2599,10 @@ def attn_decode(device, cfg, prompt=300, steps=16, bf16=True):
         (dec, toks, st_dec, secs32), _ = _no_launches(
             device, f"{cfg.name} fp32 decode",
             lambda: decode(cfg32, params, steps))
-        (full, st_full), _ = _no_launches(
+        (full, st_full, _), _ = _no_launches(
             device, f"{cfg.name} fp32 cache prefill",
             lambda: lm.lm_apply(params, toks, cfg32, mode="prefill"))
-        trained, _ = lm.lm_apply(params, toks, cfg32)
+        trained, _, _ = lm.lm_apply(params, toks, cfg32)
         e_cache = rel_err(dec, full[:, prompt:])
         e_train = rel_err(dec, trained[:, prompt:])
         parted = _kv_parted(st_dec, st_full, prompt, prompt + steps)
@@ -2533,7 +2620,7 @@ def attn_decode(device, cfg, prompt=300, steps=16, bf16=True):
         del full
         with _fp32_kv_cache():
             dec_c, toks_c, _, _ = decode(cfg32, params, steps)
-            full_c, _ = lm.lm_apply(params, toks_c, cfg32, mode="prefill")
+            full_c, _, _ = lm.lm_apply(params, toks_c, cfg32, mode="prefill")
             e_fp32_cache = rel_err(dec_c, full_c[:, prompt:])
             faults_fp32 = planted(full_c, toks_c)
         del dec_c, full_c
@@ -2587,7 +2674,7 @@ def attn_decode(device, cfg, prompt=300, steps=16, bf16=True):
         out.update(bf16_ms=1e3 * statistics.median(secs),
                    transfers=transfers, sync_warnings=w.sync_warnings)
         out.update(prof)
-        log(f"(b) {cfg.name} bf16 decode: {out['bf16_ms']:.2f} ms a step "
+        log(f"({tag}) {cfg.name} bf16 decode: {out['bf16_ms']:.2f} ms a step "
             f"({out['bf16_ms'] / B:.2f} ms a token, {B} rows, context "
             f"{prompt}-{prompt + steps}); profiled: {prof['launches']:.0f} "
             f"kernel launches and {prof['aten_ops']:.0f} aten ops a step, "
@@ -2628,6 +2715,84 @@ def public_phase(device, configs):
     return dict(served=served, decoded=decoded, vlm=vlm,
                 vlm_launches=vlm_launches, dropin_trained=dropin_trained,
                 dropin_launches=dropin_launches, nemotron=nemotron)
+
+
+# --------------------------------------------------------------------------
+# phase 13: GLA and the mixture-of-experts configs (after phase 12)
+# --------------------------------------------------------------------------
+
+
+# the MoE configs phase 13 runs, each at full width
+MOE = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
+# qwen3-moe-30b-a3b's depth on one 80 GB card: 12 of its 48 layers hold
+# 8.10 B parameters (32.4 GB fp32 + 16.2 GB for the engine's bf16 copy);
+# all 48 (30.5 B, 122 GB fp32) need several cards
+QWEN3_LAYERS = 12
+
+
+def gla_phase(device, cfg):
+    """(g) ``cfg`` (hla-1b) with ``gla``, plain torch: phase 4's requests
+    through ``Engine`` and one AdamW step at 2 x 2048 (its time), none of
+    the six kernels launched.  Returns the summary numbers."""
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+
+    gcfg = cfg.replace(mixer="gla")
+    params = init_params(lm.lm_specs(gcfg), 0, device)
+    served = family_serve(params, gcfg, device)
+    served.pop("streams")
+    del params
+    _free(device)
+    launches, trained = train(device, gcfg, steps=1)
+    if launches:
+        raise AssertionError(f"gla training launched {launches}")
+    return dict(served=served, trained=trained)
+
+
+def moe_phase(device, configs):
+    """Phase 13 on ``configs``, which maps each arch of ``MOE`` and
+    ``"hla-1b"`` to its config (the full ones on the card; ``reduced()``
+    ones rehearse on the CPU): (a) granite-moe-3b-a800m served with ``hla2``
+    and ``ahla`` in place of its attention, with (b) the fp32 identity and
+    its routing agreement first; (c) its own ``attn`` decoding (no pair
+    dropped); (d) its training at full depth with ``attn``, ``hla2`` and
+    ``ahla``; (e) qwen3-moe-30b-a3b at ``QWEN3_LAYERS`` layers served with
+    ``hla2`` after its identity; (f) granite's entry points' contracts
+    with ``hla2``; (g) hla-1b with ``gla``.  Returns the summary
+    numbers."""
+    from repro_torch.analysis import contracts
+
+    t0 = time.perf_counter()
+    granite = configs["granite-moe-3b-a800m"]
+    qwen3 = configs["qwen3-moe-30b-a3b"]
+    qwen3 = qwen3.replace(n_layers=min(qwen3.n_layers, QWEN3_LAYERS))
+    _free(device)
+    served = dropin_serve(device, granite, tag="profile_granite")
+    _free(device)
+    decoded = attn_decode(device, _no_drop(granite), tag="c")
+    _free(device)
+    trained, train_launches = {}, {}
+    for mixer in ("softmax", "hla2", "ahla"):
+        train_launches[mixer], trained[mixer] = train(
+            device, granite.replace(mixer=mixer), steps=3)
+        _free(device)
+    qwen3_served = dropin_serve(device, qwen3, mixers=("hla2",), tag=None)
+    _free(device)
+    reports = contracts.check_entry_points(granite.replace(mixer="hla2"),
+                                           device=device)
+    for r in reports:
+        log(f"(f) contract {granite.name} hla2 "
+            f"{contracts.format_report(r)}")
+    bad = {r.name: r.violations for r in reports if not r.ok}
+    if bad:
+        raise AssertionError(f"contracts violated ({granite.name}): {bad}")
+    _free(device)
+    gla = gla_phase(device, configs["hla-1b"])
+    _free(device)
+    log(f"phase 13 took {time.perf_counter() - t0:.1f}s")
+    return dict(served=served, decoded=decoded, trained=trained,
+                train_launches=train_launches, qwen3_served=qwen3_served,
+                contracts=[r.syncs for r in reports], gla=gla)
 
 
 # --------------------------------------------------------------------------
@@ -3053,6 +3218,29 @@ def time_verify(device, mixer, verify_abs, launches, rows=64, n=SPEC_K + 1,
                 bound_ms=bound, bound_by=by, library_ms=None)
 
 
+def time_d64(device, d64, moe):
+    """The six kernels at granite-moe-3b-a800m's heads (d = dv = 64) and
+    phase 13's rows: the forwards at an admission's 24 rows x 512, the
+    steps at a decode step's 96, the forwards with checkpoints and the
+    backwards at (d)'s 48 rows x 2048.  ``d64`` holds phase 2's errors at
+    these shapes, ``moe`` phase 13's summary (its launches).  Each row's
+    name carries ``[d=64]``."""
+    g = moe["served"]
+    rows = time_kernels(device, d64["chunk"], d64["step"],
+                        g["hla2"]["launches"], rows_chunk=24, rows_step=96,
+                        d=64)
+    rows += time_train_kernels(device, "hla2", *d64["bwd"],
+                               moe["train_launches"]["hla2"], rows=48, d=64)
+    rows += time_ahla_kernels(device, d64["ahla_chunk"], d64["ahla_step"],
+                              g["ahla"]["launches"], rows_chunk=24,
+                              rows_step=96, d=64)
+    rows += time_train_kernels(device, "ahla", *d64["ahla_bwd"],
+                               moe["train_launches"]["ahla"], rows=48, d=64)
+    for r in rows:
+        r["name"] += "[d=64]"
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3136,6 +3324,16 @@ def main() -> int:
     check_step(device, rows=128)
     check_ahla_step(device, rows=128)
     check_chunk_bwd(device, rows=64)
+    # phase 13's rows at granite-moe-3b-a800m's 24 heads of d = dv = 64 (two
+    # 32-column tiles a row, 16 columns per cluster CTA in the steps): an
+    # admission's 24, a decode step's 96 (4 slots), (d)'s training 48
+    d64 = dict(
+        chunk=check_chunk(device, rows=24, d=64),
+        ahla_chunk=check_ahla_chunk(device, rows=24, d=64),
+        step=check_step(device, rows=96, d=64),
+        ahla_step=check_ahla_step(device, rows=96, d=64),
+        bwd=check_chunk_bwd(device, rows=48, d=64),
+        ahla_bwd=check_ahla_chunk_bwd(device, rows=48, d=64))
     torch.cuda.synchronize()
 
     check_small_model(device)
@@ -3165,6 +3363,7 @@ def main() -> int:
                   {"hla2": trained, "ahla": ahla_trained})
     family_phase(device)
     public_phase(device, {a: get_config(a) for a in PUBLIC})
+    moe = moe_phase(device, {a: get_config(a) for a in MOE + ("hla-1b",)})
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels.append(time_verify(device, "hla2", verify_abs,
                                cfg.n_layers * spec["ngram"]["rounds"]))
@@ -3176,6 +3375,7 @@ def main() -> int:
                                cfg.n_layers * ahla_spec["ngram"]["rounds"]))
     kernels += time_train_kernels(device, "ahla", ahla_bwd_abs, ahla_ckpt_abs,
                                   ahla_train_launches)
+    kernels += time_d64(device, d64, moe)
     log(f"all phases passed in {time.perf_counter() - T0:.0f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -71,8 +71,8 @@ def main(argv=None):
 
     @torch.no_grad()
     def step(tok):
-        logits, _ = lm.lm_apply(params, tok, cfg, states=states,
-                                mode="decode")  # states updated in place
+        logits, _, _ = lm.lm_apply(params, tok, cfg, states=states,
+                                   mode="decode")  # states updated in place
         return sample(logits[:, -1], gen, scfg)[:, None]  # serving sampler
 
     tok = torch.ones((B, 1), dtype=torch.long, device=device)

@@ -5,10 +5,12 @@ from __future__ import annotations
 from . import (
     codeqwen1_5_7b,
     deepseek_67b,
+    granite_moe_3b_a800m,
     hla_1b,
     internvl2_2b,
     nemotron_4_15b,
     qwen2_72b,
+    qwen3_moe_30b_a3b,
 )
 
 _ARCHS = {
@@ -16,6 +18,8 @@ _ARCHS = {
     "qwen2-72b": qwen2_72b,
     "nemotron-4-15b": nemotron_4_15b,
     "deepseek-67b": deepseek_67b,
+    "granite-moe-3b-a800m": granite_moe_3b_a800m,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "internvl2-2b": internvl2_2b,
     "hla-1b": hla_1b,
 }

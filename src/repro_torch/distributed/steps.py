@@ -12,8 +12,9 @@ from ..optim import adamw
 
 
 def accumulate_grads(params, batch, cfg, microbatches: int = 1):
-    """``(loss, ce, grads)`` of the mean next-token CE over ``batch``,
-    accumulated over ``microbatches`` equal parts of its rows.
+    """``(loss, ce, aux, grads)`` of the mean next-token CE plus the MoE
+    load-balance loss over ``batch``, accumulated over ``microbatches``
+    equal parts of its rows.
 
     Exact, as in the reference: every part's loss is normalised by the
     *whole* batch's valid-token count (taken from the labels first), so the
@@ -22,7 +23,10 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
     (autograd's own accumulation), so one gradient set is live beside a
     part's activations.  ``grads`` (a dict like ``params``) has the
     parameters' dtype, fp32 (zeros for a leaf the loss does not reach);
-    ``loss`` and ``ce`` are sums over the parts.
+    ``loss`` and ``ce`` are sums over the parts.  The aux term stays a mean
+    over the parts (router statistics do not decompose over rows): each
+    part's loss weighs its aux by ``1 / microbatches``, and ``aux`` is the
+    parts' mean (0 without ``cfg.moe``).
     """
     B = batch["tokens"].shape[0]
     if microbatches < 1 or B % microbatches:
@@ -35,19 +39,21 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
                 batch["labels"].chunk(microbatches),
                 [None] * microbatches if vis is None
                 else vis.chunk(microbatches))
-    loss = ce = 0.0
+    loss = ce = aux = 0.0
     for tokens, labels, vis_embed in parts:
-        l, c = lm.lm_loss(live, tokens, labels, cfg, vis_embed=vis_embed,
-                          denom=n_valid)
+        l, (c, a) = lm.lm_loss(live, tokens, labels, cfg,
+                               vis_embed=vis_embed, denom=n_valid,
+                               aux_weight=1.0 / microbatches)
         l.backward()
         loss, ce = loss + l.detach(), ce + c.detach()
+        aux = aux + a.detach()
     # a leaf the loss does not reach (hla3_paper's decay_a) gets zeros, as
     # jax.grad gives it
     grads = tree_map(
         lambda x: torch.zeros_like(x) if x.grad is None else x.grad, live)
     for _, x in leaf_paths(live):
         x.grad = None  # the returned dict holds the only reference
-    return loss, ce, grads
+    return loss, ce, aux / microbatches, grads
 
 
 def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
@@ -61,8 +67,9 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
     mixer layers run ``kernels.ops.hla2_attention`` or ``ahla_attention``
     (``cfg.mixer``: forward and backward kernels on the card; ``cfg.remat
     == "full"`` launches each forward kernel twice).  ``metrics`` holds the reference's
-    keys: the scalar tensors ``loss``, ``ce`` and ``grad_norm``, the float
-    ``lr`` and ``aux`` = 0.0 (the port's stack has no auxiliary loss).
+    keys: the scalar tensors ``loss``, ``ce``, ``aux`` (the MoE
+    load-balance loss, the microbatches' mean; 0 without ``cfg.moe``) and
+    ``grad_norm``, and the float ``lr``.
 
     The step **updates ``params`` and the moments in place** and returns
     the same tensors (``adamw.adamw_update``): the reference's train step
@@ -72,11 +79,12 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
     """
 
     def train_step(params, opt_state, batch):
-        loss, ce, grads = accumulate_grads(params, batch, cfg, microbatches)
+        loss, ce, aux, grads = accumulate_grads(params, batch, cfg,
+                                                microbatches)
         with torch.no_grad():
             params, opt_state, om = adamw.adamw_update(
                 params, grads, opt_state, opt_cfg)
-        metrics = {"loss": loss, "ce": ce, "aux": 0.0, **om}
+        metrics = {"loss": loss, "ce": ce, "aux": aux, **om}
         return params, opt_state, metrics
 
     return train_step

@@ -12,14 +12,16 @@ and on the CPU (plain versions of the kernels) with ``--device cpu``:
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 ``--arch`` takes every arch of ``configs/`` (hla-1b, codeqwen1.5-7b,
-qwen2-72b, deepseek-67b, nemotron-4-15b, internvl2-2b).  ``--mixer ahla``
-swaps the arch's sequence op for AHLA (same weights layout, its own
-kernels); ``--mixer hla3``, ``hla3_paper`` or ``linattn`` for the rest of
-the HLA family (same weights layout, plain torch).  The engine serves
-streaming ops only: an arch whose op is softmax attention (``attn``, the
-five public configs) serves with an HLA mixer in its place, e.g.
-``--arch codeqwen1.5-7b --mixer hla2``, and without one the engine
-refuses it, as the reference's does.  ``--spec ngram`` (prompt lookup)
+qwen2-72b, deepseek-67b, nemotron-4-15b, internvl2-2b, and the MoE
+granite-moe-3b-a800m and qwen3-moe-30b-a3b).  ``--mixer ahla`` swaps the
+arch's sequence op for AHLA (same weights layout, its own kernels);
+``--mixer hla3``, ``hla3_paper`` or ``linattn`` for the rest of the HLA
+family (same weights layout, plain torch); ``--mixer gla`` for gated
+linear attention (its own weights layout, plain torch).  The engine
+serves streaming ops only: an arch whose op is softmax attention
+(``attn``, the seven public configs) serves with an HLA mixer in its
+place, e.g. ``--arch granite-moe-3b-a800m --mixer hla2``, and without
+one the engine refuses it, as the reference's does.  ``--spec ngram`` (prompt lookup)
 or ``--spec lm`` (a draft LM: ``--draft-arch``, reduced, random weights,
 the target's vocabulary) decodes speculatively, ``--spec-k`` draft tokens
 a round.

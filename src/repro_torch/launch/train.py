@@ -23,12 +23,15 @@ failure at step 9 and a run that resumes from the checkpoint of step 7:
 
 Without ``--ckpt-dir`` the run checkpoints into a temporary directory that
 is removed when it ends, so it never resumes.  ``--arch`` takes every arch
-of ``configs/``; the five public ones train softmax attention (``attn``,
-plain torch), internvl2-2b on tokens only, as the reference's CLI does.
-``--mixer ahla`` trains the same model with the AHLA mixer (its own
-kernels, the same parameter layout); ``--mixer hla3``, ``hla3_paper`` or
-``linattn`` with the rest of the HLA family (plain torch, the same
-parameter layout).
+of ``configs/``; the seven public ones train softmax attention (``attn``,
+plain torch), internvl2-2b on tokens only, as the reference's CLI does,
+and granite-moe-3b-a800m and qwen3-moe-30b-a3b with their MoE FFNs,
+whose load-balance loss joins the loss (the summary line prints the last
+step's ``aux``).  ``--mixer ahla`` trains the same model with the AHLA
+mixer (its own kernels, the same parameter layout); ``--mixer hla3``,
+``hla3_paper`` or ``linattn`` with the rest of the HLA family (plain
+torch, the same parameter layout); ``--mixer gla`` with gated linear
+attention (plain torch).
 """
 
 from __future__ import annotations
@@ -97,7 +100,15 @@ def main(argv=None):
     opt_cfg = adamw.OptConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 5))
     opt_state = adamw.init_opt_state(params)
-    step_fn = make_train_step(cfg, opt_cfg, microbatches=args.microbatches)
+    train_step = make_train_step(cfg, opt_cfg,
+                                 microbatches=args.microbatches)
+    last_metrics = {}
+
+    def step_fn(params, opt_state, batch):
+        params, opt_state, m = train_step(params, opt_state, batch)
+        last_metrics.update(m)  # for the summary line's aux
+        return params, opt_state, m
+
     stream = SyntheticStream(DataConfig(cfg.vocab, args.seq, args.batch,
                                         seed=args.seed, kind=args.data))
 
@@ -130,7 +141,8 @@ def main(argv=None):
     total_s = step_s.sum() or 1e-9
     print(f"[train] finished at step {last} | step p50 {p50:.3f}s "
           f"p99 {p99:.3f}s | {toks / total_s:.0f} tok/s | "
-          f"loss {obs.registry.get('train_loss').value():.4f}")
+          f"loss {obs.registry.get('train_loss').value():.4f} | "
+          f"aux {float(last_metrics.get('aux', 0.0)):.4f}")
     if sink is not None:
         sink.close()
         print(f"[train] events -> {args.events_out}")

@@ -1,14 +1,26 @@
 """Model configuration dataclasses: own copy of the reference's
-``HLAConfig``/``ModelConfig`` fields that the port reads.  The hla2/ahla
-kernels pick their own chunk width (``kernels.hla2_chunk.W``) and outputs
-do not depend on it; ``HLAConfig.chunk`` is the reference's, the chunk
-width of the plain records (``hla3``, ``hla3_paper``, ``linattn``), and
-read by the cost model (``obs/costs.py``) and the admission bucket
+``MoEConfig``, ``HLAConfig`` and ``ModelConfig`` fields that the port
+reads.  The hla2/ahla kernels pick their own chunk width
+(``kernels.hla2_chunk.W``) and outputs do not depend on it;
+``HLAConfig.chunk`` is the reference's, the chunk width of the plain
+records (``hla3``, ``hla3_paper``, ``linattn``), and read by the cost
+model (``obs/costs.py``) and the admission bucket
 (``analysis/contracts.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int  # per-expert hidden size
+    capacity_factor: float = 1.25
+    every: int = 1  # every-th layer is MoE; only 1 (all layers) is ported
+    aux_loss_coef: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +48,7 @@ class ModelConfig:
     d_head: int = 0  # 0 => d_model // n_heads
     mixer: str = "hla2"  # the registered SequenceOp ("softmax" = "attn")
     mlp: str = "swiglu"  # swiglu | squared_relu | gelu | relu
+    moe: Optional[MoEConfig] = None  # an MoE FFN in place of every MLP
     hla: HLAConfig = dataclasses.field(default_factory=HLAConfig)
     qkv_bias: bool = False
     tie_embeddings: bool = False
@@ -54,6 +67,11 @@ class ModelConfig:
         if self.remat not in ("none", "full"):
             raise ValueError(f"remat must be 'none' or 'full', got "
                              f"{self.remat!r}")
+        if self.moe is not None and self.moe.every != 1:
+            raise ValueError(
+                f"MoEConfig.every={self.moe.every} (an MoE FFN on every "
+                "every-th layer of a hybrid group) is not ported yet; use "
+                "every=1")
 
     @property
     def head_dim(self) -> int:

@@ -10,7 +10,10 @@ nested for hla3, a ``KVCache`` for attn) with every leaf ``(layers, B,
 op with ``prealloc_state`` (attn) prefills into preallocated states, in
 place.  ``positions`` reach the op only when it ``needs_positions``.
 ``cfg.remat == "full"`` recomputes each layer's activations in the
-backward pass of ``mode="train"`` (``torch.utils.checkpoint``).
+backward pass of ``mode="train"`` (``torch.utils.checkpoint``).  With
+``cfg.moe`` every layer's MLP is an MoE FFN (``models/moe.py``), whose
+load-balance loss ``lm_apply`` sums over the layers and ``lm_loss`` adds
+to the cross-entropy, as the reference does.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import moe as moe_mod
 from . import seq_op
 from .blocks import (
     embed_apply,
@@ -39,12 +43,16 @@ MODES = ("train", "prefill", "decode")
 
 def layer_specs(cfg):
     op = seq_op.op_for(cfg)
-    return {
+    s = {
         "ln1": rmsnorm_specs(cfg.d_model),
         "ln2": rmsnorm_specs(cfg.d_model),
         op.param_key: op.specs(cfg),
-        "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp),
     }
+    if cfg.moe is not None:
+        s["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp)
+    return s
 
 
 def _stack(tree, L: int):
@@ -66,16 +74,21 @@ def lm_specs(cfg):
 
 def cast_params(params, cfg):
     """The parameters as the forward pass reads them: dense kernels and
-    biases and the embedding table in ``cfg.dtype`` (the forward casts them
-    to the activation dtype at every use; casting once gives the same
-    values), norm scales and decay logits kept fp32."""
+    biases, the embedding table and the MoE experts' weights in
+    ``cfg.dtype`` (the forward casts them to the activation dtype at every
+    use; casting once gives the same values); norm scales, decay logits
+    and the MoE router kept fp32 (the router routes in fp32 from the fp32
+    weights: bf16-rounded weights would pick other experts)."""
     dt = getattr(torch, cfg.dtype)
     out = {}
     for path, x in leaf_paths(params):
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        cast = path[-1] in ("kernel", "bias", "embedding")
+        if "moe" in path:
+            cast = path[-1] in moe_mod.EXPERT_LEAVES
+        else:
+            cast = path[-1] in ("kernel", "bias", "embedding")
         node[path[-1]] = x.to(dt) if cast else x
     return out
 
@@ -103,22 +116,28 @@ def _layer(tree, l: int):
 
 
 def _block(p, x, cfg, mix):
-    """One layer: ln1 -> mixer -> residual -> ln2 -> MLP -> residual.
-    ``mix(layer_params, h)`` runs the mixer on its own params (the record's
-    ``param_key``) and returns ``(y, state)``.  Returns ``(x, state)``.  It
-    is the unit ``remat="full"`` recomputes (twin of the reference's
-    ``_maybe_remat`` around its layer body)."""
+    """One layer: ln1 -> mixer -> residual -> ln2 -> MLP (or MoE FFN) ->
+    residual.  ``mix(layer_params, h)`` runs the mixer on its own params
+    (the record's ``param_key``) and returns ``(y, state)``.  Returns ``(x,
+    state, aux)``, ``aux`` the MoE layer's load-balance loss (None without
+    ``cfg.moe``).  It is the unit ``remat="full"`` recomputes (twin of the
+    reference's ``_maybe_remat`` around its layer body), so the MoE block
+    is recomputed too and its aux leaves the checkpoint as an output."""
     y, st = mix(p, rmsnorm_apply(p["ln1"], x, cfg.norm_eps))
     x = x + y
-    x = x + mlp_apply(p["mlp"], rmsnorm_apply(p["ln2"], x, cfg.norm_eps),
-                      cfg.mlp)
-    return x, st
+    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    if cfg.moe is not None:
+        y, aux = moe_mod.moe_apply(p["moe"], h, cfg)
+    else:
+        y, aux = mlp_apply(p["mlp"], h, cfg.mlp), None
+    return x + y, st, aux
 
 
 def _trunk(params, tokens, cfg, states, mode, positions=None,
            vis_embed=None):
     """Embed (after ``vis_embed``'s tokens, when given), run every layer,
-    final norm.  Returns ``(hidden, states)``."""
+    final norm.  Returns ``(hidden, states, aux)``, ``aux`` the layers'
+    summed MoE load-balance loss (an fp32 scalar, 0 without ``cfg.moe``)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "decode" and states is None:
@@ -147,6 +166,7 @@ def _trunk(params, tokens, cfg, states, mode, positions=None,
     remat = (mode == "train" and cfg.remat == "full"
              and torch.is_grad_enabled())
     new = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.n_layers):
         p = _layer(params["layers"], l)
         st = None if states is None else tree_map(lambda s: s[l], states)
@@ -157,16 +177,18 @@ def _trunk(params, tokens, cfg, states, mode, positions=None,
             mix = lambda pl, h, st=st: op.forward(  # noqa: E731
                 pl[op.param_key], h, cfg, state=st,
                 want_state=mode != "train", **kw)
-        x, st = checkpoint(_block, p, x, cfg, mix, use_reentrant=False) \
+        x, st, a = checkpoint(_block, p, x, cfg, mix, use_reentrant=False) \
             if remat else _block(p, x, cfg, mix)
+        if a is not None:
+            aux = aux + a
         if mode == "prefill" and not in_place:
             new.append(st)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if mode == "train":
-        return x, None
+        return x, None, aux
     if in_place:
-        return x, states  # updated in place, layer by layer
-    return x, tree_map(lambda *per_layer: torch.stack(per_layer), *new)
+        return x, states, aux  # updated in place, layer by layer
+    return x, tree_map(lambda *per_layer: torch.stack(per_layer), *new), aux
 
 
 def _unembed(params, x, cfg):
@@ -177,8 +199,10 @@ def _unembed(params, x, cfg):
 
 def lm_apply(params, tokens, cfg, *, states=None, positions=None,
              mode: str = "train", vis_embed=None):
-    """``tokens (B, n)`` -> ``(logits (B, nv + n, vocab), states)``, ``nv``
-    the ``vis_embed (B, nv, d_model)`` tokens prepended (none by default).
+    """``tokens (B, n)`` -> ``(logits (B, nv + n, vocab), states, aux)``,
+    ``nv`` the ``vis_embed (B, nv, d_model)`` tokens prepended (none by
+    default) and ``aux`` the MoE layers' summed load-balance loss (an fp32
+    scalar tensor, 0 without ``cfg.moe``).
 
     ``train``: full sequence, no state (``states`` None on return);
     ``prefill``: full sequence resumed from ``states`` (or zero), returns
@@ -188,16 +212,16 @@ def lm_apply(params, tokens, cfg, *, states=None, positions=None,
     ``positions`` (default ``arange(n)``; decode must pass them) reach an
     op that needs them.
     """
-    x, states = _trunk(params, tokens, cfg, states, mode, positions,
-                       vis_embed)
-    return _unembed(params, x, cfg), states
+    x, states, aux = _trunk(params, tokens, cfg, states, mode, positions,
+                            vis_embed)
+    return _unembed(params, x, cfg), states, aux
 
 
 def lm_prefill(params, tokens, cfg, *, states=None, positions=None):
     """Chunk-parallel prompt prefill for serving admission: each HLA layer
     is ONE chunkwise kernel launch.  Returns ``(last_logits (B, vocab),
     states)``, the logits of the final prompt position only."""
-    x, states = _trunk(params, tokens, cfg, states, "prefill", positions)
+    x, states, _ = _trunk(params, tokens, cfg, states, "prefill", positions)
     return _unembed(params, x[:, -1], cfg), states
 
 
@@ -214,17 +238,21 @@ def lm_score_block(params, tokens, cfg, *, states):
     Takes no ``positions``, unlike the reference: no spec-decodable op of
     the port consumes them (``attn`` is not spec-decodable).
     """
-    return lm_apply(params, tokens, cfg, states=states, mode="prefill")
+    logits, new_states, _ = lm_apply(params, tokens, cfg, states=states,
+                                     mode="prefill")
+    return logits, new_states
 
 
-def lm_loss(params, tokens, labels, cfg, *, vis_embed=None, denom=None):
+def lm_loss(params, tokens, labels, cfg, *, vis_embed=None, denom=None,
+            aux_weight: float = 1.0):
     """Mean next-token cross-entropy in fp32 over ``mode="train"`` logits
-    of the token positions (``vis_embed``'s are sliced off); labels < 0 are
-    ignored.  ``denom`` overrides the normaliser (default: this batch's
-    valid-token count).  Returns ``(loss, ce)`` (the same number: the
-    port's stack has no auxiliary loss)."""
-    logits, _ = lm_apply(params, tokens, cfg, mode="train",
-                         vis_embed=vis_embed)
+    of the token positions (``vis_embed``'s are sliced off) plus the MoE
+    load-balance loss; labels < 0 are ignored.  ``denom`` overrides the
+    CE normaliser (default: this batch's valid-token count); ``aux_weight``
+    scales the aux term (``1 / microbatches`` under accumulation).  Returns
+    ``(ce + aux_weight * aux, (ce, aux))``, as the reference does."""
+    logits, _, aux = lm_apply(params, tokens, cfg, mode="train",
+                              vis_embed=vis_embed)
     if vis_embed is not None:
         logits = logits[:, vis_embed.shape[1]:]
     logits = logits.float()
@@ -233,4 +261,4 @@ def lm_loss(params, tokens, labels, cfg, *, vis_embed=None, denom=None):
                           .long(), reduction="none")
     d = mask.sum().clamp_min(1).float() if denom is None else denom
     ce = (nll * mask.flatten()).sum() / d
-    return ce, ce
+    return ce + aux_weight * aux, (ce, aux)

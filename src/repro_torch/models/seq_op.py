@@ -7,8 +7,9 @@ engine and the cost model program against the record only, and a layer
 keeps the record's parameters under its ``param_key``.  State trees are
 whatever ``init_state`` returns (``models/state_tree.py`` walks them).
 The port registers the HLA family, ``hla2``, ``ahla``, ``hla3``,
-``hla3_paper`` and ``linattn`` (``models/mixer.py``), and softmax
-attention, ``attn`` (``models/attention.py``).
+``hla3_paper`` and ``linattn`` (``models/mixer.py``), softmax
+attention, ``attn`` (``models/attention.py``), and gated linear
+attention, ``gla`` (``models/gla.py``, the registry's worked example).
 
 Capability flags (the reference's): ``streaming`` (a constant-size
 per-slot decode state, so slots batch continuously; requires a ``step``),
@@ -83,7 +84,7 @@ def register_op(op: SequenceOp) -> SequenceOp:
 
 def _ensure_builtins() -> None:
     # imported for their register_op side effect
-    from . import attention, mixer  # noqa: F401
+    from . import attention, gla, mixer  # noqa: F401
 
 
 def _unknown(name) -> SequenceOpError:

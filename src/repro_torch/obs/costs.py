@@ -1,8 +1,9 @@
 """Analytic per-op cost model for the port's ``SequenceOp`` records.
 
 Twin of ``repro/obs/costs.py`` for the records the port registers: the
-HLA family (``linattn``, ``hla2``, ``ahla``, ``hla3``, ``hla3_paper``) and
-softmax attention (``attn``).  One question, answered without running
+HLA family (``linattn``, ``hla2``, ``ahla``, ``hla3``, ``hla3_paper``),
+softmax attention (``attn``) and gated linear attention (``gla``, whose
+record also carries the ``cost_model`` hook).  One question, answered without running
 anything: *how many FLOPs and how many HBM bytes does operator X move per
 token* on each of its execution paths: ``train_fwd`` / ``train_bwd``
 (full-sequence chunkwise), ``train_step`` (both), ``prefill`` (same chunk
@@ -28,6 +29,13 @@ Derivation (the reference's):
 * A record may override the state-math term through the optional
   ``SequenceOp.cost_model`` hook; projections and state bytes always come
   from the record itself.
+* **MoE** (``model_cost`` only), where the port departs from the
+  reference: the reference counts ``2 x every parameter`` FLOPs a token,
+  every expert on every token.  Here an MoE layer's expert weights count
+  at ``top_k / n_experts`` for FLOPs (each token runs ``top_k`` of them),
+  and for bytes a call reads the experts it is expected to touch, ``E (1 -
+  (1 - K/E)^T)`` of the ``E`` for ``T`` tokens routed uniformly, each
+  once.  Everything else is the reference's.
 
 Cross-check: ``measured_op_flops`` runs the op's forward on the CPU (the
 kernels' plain versions) under ``torch.utils.flop_counter.FlopCounterMode``
@@ -120,6 +128,14 @@ def _fwd_hla3_paper(cfg, c, n):
     return 1.5 * _fwd_hla2(cfg, c, n) + H * (4.0 * d * d * dv / c)
 
 
+def _fwd_gla(cfg, c, n):
+    # the fixed GLA_CHUNK intra window; the gate's low-rank projection is
+    # in the record's specs already
+    H, d, dv = _dims(cfg)
+    c = min(32, n)
+    return H * (2 * c * (d + dv) + 6 * d * dv)
+
+
 def _fwd_attn(cfg, c, n):
     # scores + apply over the causal context (~n/2 on average, counted as
     # the full n: the blocks compute the padded tile)
@@ -150,6 +166,11 @@ def _dec_hla3_paper(cfg, L):
     return 1.5 * _dec_hla2(cfg, L)
 
 
+def _dec_gla(cfg, L):
+    H, d, dv = _dims(cfg)
+    return H * 5 * d * dv
+
+
 def _dec_attn(cfg, L):
     # reads the whole KV cache: O(L) a step, the paper's contrast case
     H, d, dv = _dims(cfg)
@@ -158,12 +179,14 @@ def _dec_attn(cfg, L):
 
 _FWD_STATE_FLOPS: Dict[str, Callable] = {
     "linattn": _fwd_linattn, "hla2": _fwd_hla2, "ahla": _fwd_ahla,
-    "hla3": _fwd_hla3, "hla3_paper": _fwd_hla3_paper, "attn": _fwd_attn,
+    "hla3": _fwd_hla3, "hla3_paper": _fwd_hla3_paper, "gla": _fwd_gla,
+    "attn": _fwd_attn,
 }
 
 _DEC_STATE_FLOPS: Dict[str, Callable] = {
     "linattn": _dec_linattn, "hla2": _dec_hla2, "ahla": _dec_ahla,
-    "hla3": _dec_hla3, "hla3_paper": _dec_hla3_paper, "attn": _dec_attn,
+    "hla3": _dec_hla3, "hla3_paper": _dec_hla3_paper, "gla": _dec_gla,
+    "attn": _dec_attn,
 }
 
 
@@ -267,7 +290,11 @@ def model_cost(cfg, *, mode: str = "train_fwd",
     A measured tok/s is the FULL model's (embeddings, every layer's mixer +
     FFN, the unembed head), so utilization divides by the full model's
     FLOPs: ``2 * total-param`` projection FLOPs per token (every dense
-    weight is one MAC/token) plus ``n_layers x`` the op's state math.
+    weight is one MAC/token) plus ``n_layers x`` the op's state math.  An
+    MoE layer's experts count at ``top_k / n_experts`` of their weights for
+    FLOPs and at the expected share of experts a call of ``T`` tokens
+    touches for bytes (``moe_weight_shares``); the reference counts all of
+    them for both.
     """
     from ..models import lm, seq_op
     from ..models.param import param_bytes, param_count
@@ -278,12 +305,19 @@ def model_cost(cfg, *, mode: str = "train_fwd",
     n = int(seq_len if seq_len is not None else 512)
     decode = mode == "decode_step"
     scale = _SCALE[mode]
+    tokens_per_call = max(1, batch * (1 if decode else n))
     n_params, p_bytes = param_count(specs), param_bytes(specs)
+    if cfg.moe is not None:
+        experts = {k: v for k, v in specs["layers"]["moe"].items()
+                   if k != "router"}
+        flop_share, byte_share = moe_weight_shares(cfg, tokens_per_call)
+        n_exp = param_count(experts)
+        n_params -= n_exp * (1.0 - flop_share)
+        p_bytes -= param_bytes(experts) * (1.0 - byte_share)
     # breakdown terms of `opc` are already mode-scaled
     state_flops = opc.breakdown["state_flops"] * cfg.n_layers
     state_traffic = opc.breakdown["state_traffic_bytes"] * cfg.n_layers
     flops = scale * 2.0 * n_params + state_flops
-    tokens_per_call = max(1, batch * (1 if decode else n))
     act = scale * cfg.n_layers * _ACT_ROUNDTRIPS * cfg.d_model * 4.0
     bytes_pt = scale * p_bytes / tokens_per_call + act + state_traffic
     return OpCost(
@@ -299,6 +333,15 @@ def model_cost(cfg, *, mode: str = "train_fwd",
             "chunk": opc.breakdown["chunk"],
         },
     )
+
+
+def moe_weight_shares(cfg, tokens: int):
+    """``(FLOP share, byte share)`` of an MoE layer's expert weights for a
+    call of ``tokens`` tokens: each token runs ``K`` of the ``E`` experts
+    (``K / E``), and the call reads the experts it is expected to touch,
+    ``1 - (1 - K/E)^tokens`` of them, once each."""
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    return K / E, 1.0 - (1.0 - K / E) ** tokens
 
 
 # --------------------------------------------------------------------------

@@ -655,9 +655,9 @@ class Engine:
             tok = self.tokens
             steps = []
             for _ in range(n_steps):
-                logits, _ = lm.lm_apply(self.params, tok, self.cfg,
-                                        states=self.pool.states,
-                                        mode="decode")
+                logits, _, _ = lm.lm_apply(self.params, tok, self.cfg,
+                                           states=self.pool.states,
+                                           mode="decode")
                 if sel is None:
                     nxt = sample(logits[:, -1], self.gen, uniq[0])
                 else:

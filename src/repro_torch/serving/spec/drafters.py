@@ -215,8 +215,8 @@ class HLADrafter(Drafter):
         tok = to_device(self.last[:, None], self.device)
         drafts, qs = [], []
         for _ in range(k):
-            logits, _ = lm.lm_apply(self.params, tok, self.cfg,
-                                    states=states, mode="decode")
+            logits, _, _ = lm.lm_apply(self.params, tok, self.cfg,
+                                       states=states, mode="decode")
             lg = logits[:, -1]
             nxt = sample(lg, self.gen, self.sampling)
             if self.emits_probs:

@@ -386,7 +386,7 @@ def test_train_logits_match(model, rng, n):
     ref_cfg, ref_params, cfg, params = model
     toks = rng.randint(0, cfg.vocab, (2, n))
     want, _, _ = ref_lm.lm_apply(ref_params, jnp.asarray(toks), ref_cfg)
-    got, st = lm.lm_apply(params, torch.from_numpy(toks), cfg)
+    got, st, _ = lm.lm_apply(params, torch.from_numpy(toks), cfg)
     assert st is None
     _model_close(got, want)
 
@@ -415,8 +415,8 @@ def test_prefill_then_decode_matches(model, rng, n):
         want, st_ref, _ = ref_lm.lm_apply(
             ref_params, jnp.asarray(toks[:, t:t + 1]), ref_cfg,
             states=st_ref, positions=jnp.full((2, 1), t), mode="decode")
-        got, st2 = lm.lm_apply(params, torch.from_numpy(toks[:, t:t + 1]),
-                               cfg, states=st, mode="decode")
+        got, st2, _ = lm.lm_apply(params, torch.from_numpy(toks[:, t:t + 1]),
+                                  cfg, states=st, mode="decode")
         assert st2 is st  # decode updates the states in place
         _model_close(got, want)
     for a, b in zip(st, st_ref):

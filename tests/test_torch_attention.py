@@ -166,8 +166,8 @@ def test_attn_decode_step_makes_no_host_transfer():
     _, states = lm.lm_prefill(params, tok[:, :8], cfg)
     pos = torch.full((2, 1), 8)
     with _watch(torch.device("cpu")) as w:
-        logits, out = lm.lm_apply(params, tok[:, 8:], cfg, states=states,
-                                  positions=pos, mode="decode")
+        logits, out, _ = lm.lm_apply(params, tok[:, 8:], cfg, states=states,
+                                     positions=pos, mode="decode")
     assert out is states and logits.shape == (2, 1, cfg.vocab)
     assert sum(w.transfers.values()) == 0, dict(w.transfers)
     assert states.length.tolist() == [9] * cfg.n_layers

@@ -9,18 +9,28 @@ reference's (``repro/obs/costs.py``).
   its own to XLA's dot FLOPs the same way);
 * state bytes are constant in the sequence length (the paper's O(1)-state
   claim) and equal the reference's ``eval_shape`` account;
-* the ``SequenceOp.cost_model`` hook replaces the state terms only.
+* the ``SequenceOp.cost_model`` hook replaces the state terms only;
+* ``gla`` (its record's hook) equals the reference in every mode;
+* an MoE config's ``model_cost`` is the reference's with the experts'
+  share replaced (FLOPs at ``top_k / n_experts``, bytes at the expected
+  share of experts a call touches), a closed form; at reduced
+  qwen3-moe-30b-a3b (8 experts, top 2) it lies within 2x of what
+  ``FlopCounterMode`` counts in the whole model's forward, and the
+  reference's count, every expert on every token, does not.
 """
 
 import dataclasses
 
 import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import get_config as ref_get_config
 from repro.models import seq_op as ref_seq_op
 from repro.obs import costs as ref_costs
 from repro_torch.configs import get_config
-from repro_torch.models import seq_op
+from repro_torch.models import lm, seq_op
+from repro_torch.models.param import init_params, param_bytes, param_count
 from repro_torch.obs import costs
 from repro_torch.serving.cache import state_bytes_for
 
@@ -121,7 +131,7 @@ def test_unknown_mode_or_op_raises():
     cfg = get_config("hla-1b", reduced=True)
     with pytest.raises(ValueError, match="mode"):
         costs.op_cost("hla2", cfg, mode="inference")
-    op = dataclasses.replace(seq_op.get_op("hla2"), name="gla")
+    op = dataclasses.replace(seq_op.get_op("hla2"), name="rwkv6")
     with pytest.raises(ValueError, match="no state-math formula"):
         costs.record_cost(op, cfg)
 
@@ -238,3 +248,80 @@ def test_attn_analytic_flops_within_2x_of_counted_and_grow_with_context():
     long = costs.op_cost("attn", cfg, mode="decode_step", seq_len=4096)
     assert long.flops_per_token > short.flops_per_token
     assert long.state_bytes > short.state_bytes
+
+
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "hla-1b"])
+def test_gla_costs_match_reference(reduced):
+    """``gla``'s record hook (its fixed 32-token chunk) and ``model_cost``
+    equal the reference's in every mode."""
+    ref_cfg, cfg = _cfgs("gla", reduced)
+    assert seq_op.get_op("gla").cost_model is not None
+    for mode in costs.MODES:
+        for seq_len, batch in ((1, 1), (20, 1), (300, 4), (2048, 2)):
+            kw = dict(mode=mode, seq_len=seq_len, batch=batch)
+            _same(costs.op_cost("gla", cfg, **kw),
+                  ref_costs.op_cost("gla", ref_cfg, **kw))
+            _same(costs.model_cost(cfg, **kw),
+                  ref_costs.model_cost(ref_cfg, **kw))
+
+
+MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
+
+
+@pytest.mark.parametrize("mixer", [None, "hla2"], ids=["attn", "hla2"])
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_model_cost_is_reference_with_expert_share(arch, reduced,
+                                                       mixer):
+    """The reference's ``model_cost`` minus the experts' weights it counts
+    beyond the share a token runs (FLOPs) and a call reads (bytes)."""
+    ref_cfg = ref_get_config(arch, reduced=reduced, mixer=mixer)
+    cfg = get_config(arch, reduced=reduced, mixer=mixer)
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    experts = {k: v for k, v in lm.lm_specs(cfg)["layers"]["moe"].items()
+               if k != "router"}
+    n_exp, b_exp = param_count(experts), param_bytes(experts)
+    assert n_exp == cfg.n_layers * E * 3 * cfg.d_model * cfg.moe.d_ff
+    for mode in costs.MODES:
+        scale = costs._SCALE[mode]
+        for seq_len, batch in ((1, 1), (64, 1), (300, 4), (2048, 2)):
+            kw = dict(mode=mode, seq_len=seq_len, batch=batch)
+            got = costs.model_cost(cfg, **kw)
+            want = ref_costs.model_cost(ref_cfg, **kw)
+            T = batch * (1 if mode == "decode_step" else seq_len)
+            touched = E * (1 - (1 - K / E) ** T)
+            flops = want.flops_per_token - scale * 2 * n_exp * (1 - K / E)
+            nbytes = want.bytes_per_token \
+                - scale * b_exp * (1 - touched / E) / T
+            assert got.flops_per_token == pytest.approx(flops, rel=REL)
+            assert got.bytes_per_token == pytest.approx(nbytes, rel=REL)
+            assert got.state_bytes == want.state_bytes
+            assert got.breakdown["state_flops"] == pytest.approx(
+                want.breakdown["state_flops"], rel=REL)
+    # decode at 4 slots touches ~24 of granite's 40 experts, not 40
+    if arch == "granite-moe-3b-a800m" and not reduced:
+        assert costs.moe_weight_shares(cfg, 4)[1] * E == pytest.approx(
+            23.616)
+
+
+def test_moe_model_flops_within_2x_of_counted():
+    """Reduced qwen3-moe-30b-a3b (8 experts, top 2): the port's analytic
+    forward FLOPs/token against ``FlopCounterMode`` over the whole model's
+    forward (capacity slots included), and the reference's."""
+    cfg = get_config("qwen3-moe-30b-a3b", reduced=True)
+    assert cfg.moe.n_experts / cfg.moe.top_k >= 4
+    params = init_params(lm.lm_specs(cfg), 0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (1, 64),
+                           generator=torch.Generator().manual_seed(0))
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        lm.lm_apply(params, tokens, cfg)
+    counted = counter.get_total_flops() / 64
+    ours = costs.model_cost(cfg, mode="train_fwd", seq_len=64)
+    ref = ref_costs.model_cost(
+        ref_get_config("qwen3-moe-30b-a3b", reduced=True), mode="train_fwd",
+        seq_len=64)
+    assert 0.5 <= ours.flops_per_token / counted <= 2.0, (
+        ours.flops_per_token, counted)
+    assert ref.flops_per_token / counted > 2.0, (ref.flops_per_token,
+                                                 counted)

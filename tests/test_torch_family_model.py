@@ -91,8 +91,8 @@ def test_prefill_and_decode_match_reference(rng, mixer):
         want, st_ref, _ = ref_lm.lm_apply(
             ref_params, jnp.asarray(toks[:, t:t + 1]), ref_cfg,
             states=st_ref, positions=jnp.full((2, 1), t), mode="decode")
-        got, st2 = lm.lm_apply(params, torch.from_numpy(toks[:, t:t + 1]),
-                               cfg, states=st, mode="decode")
+        got, st2, _ = lm.lm_apply(params, torch.from_numpy(toks[:, t:t + 1]),
+                                  cfg, states=st, mode="decode")
         assert st2 is st
         assert _rel(got, want) <= TOL
     _same_states(st, st_ref)
@@ -225,11 +225,11 @@ def test_impl_scan_matches_reference(rng, mixer):
                                  ref_cfg, states=st_ref,
                                  positions=jnp.full((2, 1), 13),
                                  mode="decode")
-    got, _ = lm.lm_apply(params, torch.from_numpy(toks[:, 13:]), cfg,
-                         states=st, mode="decode")
+    got, _, _ = lm.lm_apply(params, torch.from_numpy(toks[:, 13:]), cfg,
+                            states=st, mode="decode")
     assert _rel(got, want) <= TOL
-    got, _ = lm.lm_apply(params, torch.from_numpy(toks), cfg)
-    chunked, _ = lm.lm_apply(params, torch.from_numpy(toks), chunk_cfg)
+    got, _, _ = lm.lm_apply(params, torch.from_numpy(toks), cfg)
+    chunked, _, _ = lm.lm_apply(params, torch.from_numpy(toks), chunk_cfg)
     assert _rel(got, chunked) <= TOL
 
 

@@ -273,8 +273,8 @@ def test_remat_matches_no_remat(monkeypatch, rng, mixer):
     out = {}
     for remat in ("none", "full"):
         calls = _counted(monkeypatch, mod, [fwd, bwd])
-        loss, _, grads = accumulate_grads(params, batch,
-                                          cfg.replace(remat=remat))
+        loss, _, _, grads = accumulate_grads(params, batch,
+                                             cfg.replace(remat=remat))
         out[remat] = loss, grads
         assert calls == {fwd: cfg.n_layers * (2 if remat == "full" else 1),
                          bwd: cfg.n_layers}, remat
@@ -333,8 +333,8 @@ def test_microbatches_match_reference(uneven):
 def test_microbatches_match_one_batch(uneven):
     _, _, cfg, params, host = uneven
     batch = {k: torch.from_numpy(v) for k, v in host.items()}
-    l1, c1, g1 = accumulate_grads(params, batch, cfg, 1)
-    l4, c4, g4 = accumulate_grads(params, batch, cfg, 4)
+    l1, c1, _, g1 = accumulate_grads(params, batch, cfg, 1)
+    l4, c4, _, g4 = accumulate_grads(params, batch, cfg, 4)
     assert _rel(l4, l1) <= 1e-6 and _rel(c4, c1) <= 1e-6
     for (path, a), (_, b) in zip(leaf_paths(g1), leaf_paths(g4)):
         assert b.dtype == torch.float32

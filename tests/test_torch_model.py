@@ -72,7 +72,7 @@ def test_train_logits_match(model, rng, n):
     ref_cfg, ref_params, cfg, params = model
     toks = rng.randint(0, cfg.vocab, (2, n))
     want, _, _ = ref_lm.lm_apply(ref_params, jnp.asarray(toks), ref_cfg)
-    got, st = lm.lm_apply(params, torch.from_numpy(toks), cfg)
+    got, st, _ = lm.lm_apply(params, torch.from_numpy(toks), cfg)
     assert st is None
     _close(got, want)
 
@@ -99,8 +99,8 @@ def test_prefill_then_decode_matches(model, rng, n):
         want, st_ref, _ = ref_lm.lm_apply(
             ref_params, jnp.asarray(toks[:, t:t + 1]), ref_cfg,
             states=st_ref, positions=jnp.full((2, 1), t), mode="decode")
-        got, st2 = lm.lm_apply(params, torch.from_numpy(toks[:, t:t + 1]),
-                               cfg, states=st, mode="decode")
+        got, st2, _ = lm.lm_apply(params, torch.from_numpy(toks[:, t:t + 1]),
+                                  cfg, states=st, mode="decode")
         assert st2 is st  # decode updates the states in place
         _close(got, want)
     for a, b in zip(st, st_ref):
@@ -176,6 +176,6 @@ def test_config_variants_prefill_and_decode_match(rng, variant):
     want, _, _ = ref_lm.lm_apply(
         ref_params, jnp.asarray(toks[:, 11:]), ref_cfg, states=st_ref,
         positions=jnp.full((2, 1), 11), mode="decode")
-    got, _ = lm.lm_apply(params, torch.from_numpy(toks[:, 11:]), cfg,
-                         states=st, mode="decode")
+    got, _, _ = lm.lm_apply(params, torch.from_numpy(toks[:, 11:]), cfg,
+                            states=st, mode="decode")
     _close(got, want)

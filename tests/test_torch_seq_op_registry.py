@@ -49,8 +49,9 @@ def _close(got, want, tol=TOL):
 
 
 def test_hla_family_registered():
-    assert seq_op.registered_op_names() == ("ahla", "attn") + FAMILY[1:]
-    assert seq_op.streaming_op_names() == FAMILY
+    assert seq_op.registered_op_names() == ("ahla", "attn", "gla") + \
+        FAMILY[1:]
+    assert seq_op.streaming_op_names() == ("ahla", "gla") + FAMILY[1:]
     assert set(FAMILY) <= set(ref_seq_op.registered_op_names())
 
 

@@ -438,7 +438,7 @@ def test_rollback_equals_plain_decode_bit_for_bit(rng, mixer):
     own = type(pool.states)(*(x.clone() for x in pool.states))
     tok = tokens
     for j in range(k):
-        lg, _ = lm.lm_apply(params, tok, cfg, states=own, mode="decode")
+        lg, _, _ = lm.lm_apply(params, tok, cfg, states=own, mode="decode")
         tok = lg[:, -1].argmax(-1, keepdim=True)
         drafts[0, j] = tok[0, 0]
     tok_block = torch.cat([tokens, drafts], 1)
@@ -478,7 +478,7 @@ def test_fully_accepted_round_keeps_verify_states(rng):
     oracle = type(pool.states)(*(x.clone() for x in pool.states))
     tok, drafts = tokens, []
     for _ in range(3):
-        lg, _ = lm.lm_apply(params, tok, cfg, states=oracle, mode="decode")
+        lg, _, _ = lm.lm_apply(params, tok, cfg, states=oracle, mode="decode")
         tok = lg[:, -1].argmax(-1, keepdim=True)
         drafts.append(tok)
     lm.lm_apply(params, tok, cfg, states=oracle, mode="decode")
@@ -519,7 +519,7 @@ def test_speculative_sampling_preserves_the_target_law(with_q):
         q, drafts = None, torch.full((rows, k), 6)
     verify = make_verify(cfg, scfg, draft_probs=with_q)
     packed, _ = verify(params, states, torch.cat([last, drafts], 1), gen, q)
-    logits, _ = lm.lm_apply(params, last[:1], cfg, states=st, mode="prefill")
+    logits, _, _ = lm.lm_apply(params, last[:1], cfg, states=st, mode="prefill")
     p = probs(logits[0, 0], scfg).double()
     counts = torch.bincount(packed[:, 1], minlength=8).double()
     chi2 = float(((counts - rows * p) ** 2 / (rows * p)).sum())

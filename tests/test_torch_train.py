@@ -92,9 +92,11 @@ def _check_loss_and_grads(model, rng, denom):
         ref_params)
     tree = tree_map(lambda x: x.clone().requires_grad_(True), params)
     live = dict(leaf_paths(tree))
-    loss, ce = lm.lm_loss(tree, torch.from_numpy(toks),
-                          torch.from_numpy(labels), cfg, denom=denom)
-    assert loss.dtype == torch.float32 and loss is ce
+    loss, (ce, aux) = lm.lm_loss(tree, torch.from_numpy(toks),
+                                 torch.from_numpy(labels), cfg, denom=denom)
+    # no MoE layer: the aux term is 0 and the loss is the CE
+    assert loss.dtype == torch.float32 and float(aux) == 0.0
+    assert torch.equal(loss, ce)
     assert _rel(loss.detach(), want) <= TOL
     grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
     want_g = _ref_leaves(ref_grads)

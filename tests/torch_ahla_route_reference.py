@@ -81,8 +81,8 @@ def port_routes(toks, mixer, weights, dtype="float32"):
         st = lm.lm_init_states(cfg, 1, "cpu")
         out = []
         for i in range(t.shape[1]):
-            logits, st = lm.lm_apply(params, t[:, i:i + 1], cfg, states=st,
-                                     mode="decode")
+            logits, st, _ = lm.lm_apply(params, t[:, i:i + 1], cfg, states=st,
+                                        mode="decode")
             out.append(logits[0, 0].double().numpy())
     return chunk, np.stack(out)
 
