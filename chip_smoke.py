@@ -23,7 +23,10 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    forward with checkpoints at 64 rows x 2048 tokens; and at phase 13's
    (granite-moe-3b-a800m's 24 heads of d = dv = 64): the forwards at 24
    rows, the steps at 96, both backwards and forwards with checkpoints at
-   48 rows x 2048 and 300 tokens;
+   48 rows x 2048 and 300 tokens; and at phase 14's (jamba-1.5-large-398b's
+   64 heads of 128, 8 KV heads broadcast): HLA2's forward at 128 rows x
+   300 tokens, its step at 128 rows, its backward and forward with
+   checkpoints at 64 rows x 1024 tokens;
 3. check the port against its plain path on a small model (card vs CPU):
    prefill + decode logits, and the training loss and every parameter's
    gradient, with either mixer; and at full width that prefill(L) + one
@@ -157,10 +160,31 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    with ``hla2`` (1 / 1 / 1 or 2 / 0 host transfers); (g) hla-1b with
    ``gla`` (plain torch): phase 4's requests and one AdamW step at 2 x
    2048, none of the six kernels launched;
+14. (runs after phase 13) Mamba, RWKV-6 and the hybrid group stack (plain
+   torch but for the HLA2 kernels at jamba's attention position): (a)
+   rwkv6-7b at full size (32 layers, 7.53 B parameters) serving phase 4's
+   8 requests in bf16 through ``Engine``, 4 slots, no kernel launched, and
+   a profile of one decode step (launches, aten ops, device busy); (b) its
+   fp32 prefill(L) + one step equals prefill(L + 1), and 2 requests
+   served speculatively (n-gram, k = 4) in fp32 equal plain greedy; (c)
+   its training at ``RWKV_TRAIN_LAYERS`` layers with ``remat="full"``: 3
+   AdamW steps at 2 x 2048, the loss falls; (d) jamba-1.5-large-398b at
+   full width cut to one group (8 layers: 7 Mamba, attention at position
+   4) and ``JAMBA_EXPERTS`` experts, bf16 parameters: 2 prompts of 300
+   tokens through ``lm_prefill`` and 16 greedy decode steps through
+   ``lm_apply`` (``Engine`` refuses hybrid stacks), with ``hla2`` (exactly
+   one ``hla2_chunk_fwd`` a prefill and one ``hla2_step`` a decode step, no
+   plain version) and with its own ``attn`` (no launch); (e) before (d),
+   the same cut in fp32 with ``hla2`` and no pair dropped: prefill(L) +
+   one step equals prefill(L + 1), every MoE layer's routes alike; (f)
+   jamba at half width (``_jamba_half``), one group, ``hla2``, bf16
+   parameters, moments and accumulator, ``remat="full"`` on the group: 3
+   AdamW steps at 2 x 1024 with lr ``JAMBA_LR``, the loss falls, 2 + 1
+   launches a step;
 7. time each kernel and its plain version at its path's shapes (the step
    kernels also at 16 rows, one slot; the chunk forwards also at the
    verify shape, ``[verify]``; all six also at phase 13's d = 64 shapes,
-   ``[d=64]``).
+   ``[d=64]``; the HLA2 three at phase 14's jamba shapes, ``[jamba]``).
 
 The second-to-last line is the ``kernels`` JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -720,7 +744,7 @@ def check_identity(params, cfg, L=300):
     routing = ""
     agree = 1.0
     if cfg.moe is not None:
-        n = cfg.n_layers
+        n = _moe_layers(cfg)
         split, one = seen[:n], zip(seen[n:2 * n], seen[2 * n:3 * n])
         same = sum(int((torch.cat([a, b], 1) == c).sum())
                    for a, (b, c) in zip(split, one))
@@ -1658,6 +1682,21 @@ TRAIN_KERNELS = {"hla2": ("hla2_chunk", "hla2_chunk_fwd", "hla2_chunk_bwd"),
                  "ahla": ("ahla_chunk", "ahla_chunk_fwd", "ahla_chunk_bwd")}
 
 
+def _mixer_layers(cfg):
+    """The layers that run ``cfg.mixer``: all of a uniform stack's, one a
+    hybrid group."""
+    return cfg.n_layers // cfg.group_size if cfg.group_size else \
+        cfg.n_layers
+
+
+def _moe_layers(cfg):
+    """The layers with an MoE FFN."""
+    from repro_torch.models import lm
+
+    layout, units = lm.stack_layout(cfg)
+    return units * sum(use_moe for _, _, use_moe in layout)
+
+
 def _want_train(cfg, steps=1, microbatches=1):
     """Each training kernel's launches over ``steps`` steps of ``cfg``: per
     layer and microbatch one forward and one backward, and under
@@ -1666,7 +1705,7 @@ def _want_train(cfg, steps=1, microbatches=1):
     if cfg.mixer not in TRAIN_KERNELS:
         return {}
     _, fwd, bwd = TRAIN_KERNELS[cfg.mixer]
-    passes = cfg.n_layers * steps * microbatches
+    passes = _mixer_layers(cfg) * steps * microbatches
     return {fwd: passes * (2 if cfg.remat == "full" else 1), bwd: passes}
 
 
@@ -1699,27 +1738,28 @@ def _count_train(device, cfg, fn):
         name.removesuffix("_plain") for name in plain_calls))
 
 
-def train(device, cfg, steps=5, batch=2, seq=2048):
-    """AdamW steps of ``cfg`` (its activations' dtype and remat, fp32
-    parameters and moments) on one repeated synthetic batch (with
-    ``cfg.vis_tokens`` seeded patch embeddings x 0.1 before the tokens).
-    Returns the launch counts of the run and its summary numbers."""
+def train(device, cfg, steps=5, batch=2, seq=2048, lr=1e-5):
+    """AdamW steps of ``cfg`` (its activations' dtype and remat, its
+    ``param_dtype`` and ``moment_dtype``: fp32 but for jamba) on one
+    repeated synthetic batch (with ``cfg.vis_tokens`` seeded patch
+    embeddings x 0.1 before the tokens).  Returns the launch counts of the
+    run and its summary numbers."""
     import numpy as np
     import torch
 
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
-    from repro_torch.distributed.steps import make_train_step
-    from repro_torch.models import lm
+    from repro_torch.distributed.steps import make_train_step, model_specs
     from repro_torch.models.param import init_params
     from repro_torch.optim import adamw
 
-    params = init_params(lm.lm_specs(cfg), 0, device)
+    params = init_params(model_specs(cfg), 0, device)
     # with one warmup step, the default lr 3e-4 moves every weight by ~lr
     # at once: on this random-weight model the loss rose 11.0 -> 18.2 and
     # the gradient norm 109 -> 28757 (H100, 700 W); 1e-5 stays in the
-    # regime where a step follows the gradient
-    opt_cfg = adamw.OptConfig(lr=1e-5, warmup_steps=1, total_steps=steps)
-    state = adamw.init_opt_state(params)
+    # regime where a step follows the gradient (bf16 storage needs more:
+    # see hybrid_phase)
+    opt_cfg = adamw.OptConfig(lr=lr, warmup_steps=1, total_steps=steps)
+    state = adamw.init_opt_state(params, cfg.moment_dtype)
     step_fn = make_train_step(cfg, opt_cfg)
     host = SyntheticStream(DataConfig(cfg.vocab, seq, batch, seed=0)).batch(0)
     data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
@@ -1750,8 +1790,9 @@ def train(device, cfg, steps=5, batch=2, seq=2048):
     vis = f" (+ {cfg.vis_tokens} vis_embed)" if cfg.vis_tokens else ""
     aux = f" | aux {' '.join(f'{x:.5f}' for x in auxes)}" if cfg.moe else ""
     log(f"trained {cfg.name} ({cfg.mixer}; {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.dtype} activations, fp32 parameters and "
-        f"moments, remat {cfg.remat}) for {steps} AdamW steps on one "
+        f"{cfg.d_model}, {cfg.dtype} activations, {cfg.param_dtype} "
+        f"parameters, {cfg.moment_dtype} moments, remat {cfg.remat}, lr "
+        f"{lr:g}) for {steps} AdamW steps on one "
         f"{batch} x {seq}{vis} batch: loss "
         f"{' '.join(f'{x:.4f}' for x in losses)}{aux} | grad norm "
         f"{' '.join(f'{x:.3f}' for x in norms)} | step "
@@ -2796,6 +2837,269 @@ def moe_phase(device, configs):
 
 
 # --------------------------------------------------------------------------
+# phase 14: Mamba, RWKV-6 and the hybrid group stack (after phase 13)
+# --------------------------------------------------------------------------
+
+
+# the configs phase 14 runs
+HYBRID = ("rwkv6-7b", "jamba-1.5-large-398b")
+# rwkv6-7b trains at 8 of its 32 layers: AdamW's fp32 parameters,
+# gradients and two moments take 16 B a parameter, 121 GB for all 7.53 B
+# (2.29 B, ~37 GB at 8)
+RWKV_TRAIN_LAYERS = 8
+# jamba-1.5-large-398b on one 80 GB card: one group (8 layers) at full
+# width with 4 of its 16 experts (top 2 kept) holds 16.25 B parameters,
+# 32.5 GB in its bf16 (a full-width group with all 16 is 45.2 B)
+JAMBA_EXPERTS = 4
+# jamba trains at half width (``_jamba_half``: d_model 4096, 32 heads of
+# 128, 4 KV heads, d_ff 12288 dense and per expert, 4 experts): 4.33 B
+# parameters, ~35 GB of bf16 parameters, gradients and two moments; even a
+# full-width group with 2 experts (11.42 B) would need ~91 GB
+# bf16 storage swallows an update under half an ulp: at 1e-5 a step moves a
+# weight of ~0.016 by ~1e-5, below bf16's half ulp there (3e-5), so the
+# weights would not change; jamba trains at the reference's default lr
+JAMBA_LR = 3e-4
+HYBRID_STEPS = 16  # greedy decode steps after the jamba prefill
+
+
+def _jamba_cut(cfg, **kw):
+    """``cfg`` at one group (8 layers) and ``JAMBA_EXPERTS`` experts, top 2
+    kept; ``kw`` replaces more fields (the training cut's widths)."""
+    moe = dataclasses.replace(cfg.moe, n_experts=min(cfg.moe.n_experts,
+                                                     JAMBA_EXPERTS))
+    if "d_ff" in kw:
+        moe = dataclasses.replace(moe, d_ff=kw["d_ff"])
+    return cfg.replace(n_layers=cfg.group_size, moe=moe, **kw)
+
+
+def _jamba_half(cfg):
+    """The training cut: ``_jamba_cut`` at half of every width but the
+    head dim (half the heads, half the KV heads, half of d_ff)."""
+    return _jamba_cut(cfg, mixer="hla2", d_model=cfg.d_model // 2,
+                      n_heads=cfg.n_heads // 2,
+                      n_kv_heads=cfg.n_kv_heads // 2, d_ff=cfg.d_ff // 2)
+
+
+def _attn_view(params, cfg):
+    """``params`` (an HLA mixer at the attention position) as ``cfg``'s
+    op reads them: for ``attn``, the position's ``wq``/``wk``/``wv``/``wo``
+    under the record's own key (the same tensors; ``out_scale`` and
+    ``decay_a`` unused)."""
+    from repro_torch.models import seq_op
+
+    op = seq_op.op_for(cfg)
+    if op.param_key == "mixer":
+        return params
+    key = f"pos{cfg.attn_index}"
+    pos = dict(params["groups"][key])
+    mix = pos.pop("mixer")
+    pos[op.param_key] = {k: mix[k] for k in ("wq", "wk", "wv", "wo")}
+    return dict(params, groups=dict(params["groups"], **{key: pos}))
+
+
+def _params_to(params, dtype):
+    """Every leaf of ``params`` cast to ``dtype`` in place of the old one
+    (leaf by leaf, so the two copies never coexist)."""
+    for key, x in params.items():
+        if isinstance(x, dict):
+            _params_to(x, dtype)
+        else:
+            params[key] = x.to(dtype)
+    return params
+
+
+def rwkv_serve(params, cfg, device):
+    """(a) phase 4's 8 requests in bf16 through ``Engine``, 4 slots, no
+    kernel launch; then a profile of one decode step of the 4 slots
+    (launches, aten ops, device busy).  Returns the summary numbers."""
+    import torch
+
+    from repro_torch.models import lm
+
+    bf = cfg.replace(dtype="bfloat16")
+    served = family_serve(params, bf, device)
+    served.pop("streams")
+    _free(device)
+    cast = lm.cast_params(params, bf)
+    st = lm.lm_init_states(bf, 4, device)
+    tok = torch.full((4, 1), 7, dtype=torch.long, device=device)
+    with torch.no_grad():
+        prof = _profile_calls(device, lambda j: lm.lm_apply(
+            cast, tok, bf, states=st, mode="decode"))
+    log(f"(a) {cfg.name} one decode step of 4 slots under torch.profiler: "
+        f"{prof['launches']:.0f} launches, {prof['aten_ops']:.0f} aten ops, "
+        f"device busy {prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} "
+        f"ms wall")
+    del cast, st
+    return dict(served, profile=prof)
+
+
+def rwkv_spec(params, cfg, device, n_req=2, gen=32):
+    """(b) fp32: ``n_req`` requests whose prompts repeat a 16-token motif
+    (so the n-gram drafter proposes), served speculatively (``ngram``, k
+    ``SPEC_K``), equal plain greedy token for token; no kernel launch."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Engine, GenRequest
+    from repro_torch.serving.spec import SpecConfig
+
+    cfg32 = cfg.replace(dtype="float32")
+    rs = np.random.RandomState(5)
+    reqs = [GenRequest(rid=i, prompt=np.tile(rs.randint(2, cfg.vocab, 16),
+                                             16), max_new=gen)
+            for i in range(n_req)]
+    kw = dict(slots=n_req, max_len=256 + gen + 8, block=8, seed=0,
+              device=device)
+    plain = Engine(cfg32, params, **kw).run(reqs)
+    spec = Engine(cfg32, params, spec=SpecConfig(
+        k=SPEC_K, drafter="ngram", breaker_zero_rounds=2**31), **kw)
+    got, _ = _no_launches(device, f"spec {cfg.name}", lambda: spec.run(reqs))
+    st = spec.stats
+    parted = [r.rid for r, p in zip(got, plain) if r.tokens != p.tokens]
+    log(f"(b) {cfg.name} fp32 speculative greedy, ngram drafter, k "
+        f"{SPEC_K}: {n_req - len(parted)} of {n_req} streams equal plain "
+        f"greedy; {st['spec_rounds']} rounds, {st['spec_replays']} rolled "
+        f"back, {st['spec_accepted']} drafts accepted of "
+        f"{st['spec_drafted']}")
+    if parted or not st["spec_rounds"] or st["breaker_trips"]:
+        raise AssertionError(f"spec streams {parted} part from plain greedy")
+    return dict(rounds=st["spec_rounds"], replays=st["spec_replays"])
+
+
+def hybrid_decode(params, cfg, device, prompt=300, steps=HYBRID_STEPS,
+                  rows=2):
+    """(d) ``cfg`` (jamba at its serving cut, bf16): ``rows`` prompts of
+    ``prompt`` tokens through ``lm_prefill``, then ``steps`` greedy
+    decode steps through ``lm_apply`` (the engine refuses hybrid stacks).
+    With ``hla2`` exactly one ``hla2_chunk_fwd`` a prefill and one
+    ``hla2_step`` a decode step (one group), no plain version on a CUDA
+    tensor; with ``attn`` no launch.  Returns the summary numbers."""
+    import torch
+
+    from repro_torch.models import lm
+
+    cast = lm.cast_params(params, cfg)
+    gen = torch.Generator(device=device).manual_seed(2)
+    toks = torch.randint(2, cfg.vocab, (rows, prompt), generator=gen,
+                         device=device)
+    want = ({"hla2_chunk_fwd": 1}, {"hla2_step": 1}) \
+        if cfg.mixer == "hla2" else ({}, {})
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        (last, st), pre_l, pre_s = _run_counted(
+            device, lambda: lm.lm_prefill(cast, toks, cfg))
+        tok = last.argmax(-1, keepdim=True)
+        step_s, step_l = [], []
+        for t in range(steps):
+            pos = torch.full((rows, 1), prompt + t, device=device)
+            (logits, _, _), l_t, s_t = _run_counted(
+                device, lambda: lm.lm_apply(cast, tok, cfg, states=st,
+                                            positions=pos, mode="decode"))
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            step_s.append(s_t)
+            step_l.append({k: v for k, v in l_t.items() if v})
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 \
+        if device.type == "cuda" else 0.0
+    pre_l = {k: v for k, v in pre_l.items() if v}
+    ms = 1e3 * sorted(step_s)[len(step_s) // 2]
+    log(f"(d) {cfg.name} ({cfg.mixer}; {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.moe.n_experts} experts top {cfg.moe.top_k}, "
+        f"{cfg.param_dtype} parameters, {cfg.dtype}): prefill {rows} x "
+        f"{prompt} in {1e3 * pre_s:.1f} ms (launches {pre_l}), {steps} "
+        f"greedy decode steps, p50 {ms:.2f} ms a step (launches a step "
+        f"{step_l[0]}) | peak memory {peak:.2f} GiB")
+    if device.type == "cuda" and (pre_l != want[0] or any(
+            x != want[1] for x in step_l)):
+        raise AssertionError(f"launches {pre_l} / {step_l}, want {want}")
+    if not bool(logits.isfinite().all()):
+        raise AssertionError("non-finite decode logits")
+    return dict(prefill_ms=1e3 * pre_s, step_ms=ms, peak_gib=peak,
+                launches={k: pre_l.get(k, 0) + sum(x.get(k, 0)
+                                                   for x in step_l)
+                          for k in set(pre_l) | set(step_l[0])})
+
+
+def hybrid_phase(device, configs):
+    """Phase 14 on ``configs``, which maps each arch of ``HYBRID`` to its
+    config (the full ones on the card; ``reduced()`` ones rehearse on the
+    CPU): (a) rwkv6-7b at full size served through ``Engine`` and a
+    one-step profile; (b) its fp32 identity and speculative streams; (c)
+    its training at ``RWKV_TRAIN_LAYERS`` layers; (e) jamba's fp32
+    identity at its serving cut with ``hla2`` and (d) that cut in bf16
+    decoding with ``hla2`` and its own ``attn``; (f) jamba training at
+    half width with ``hla2``.  Returns the summary numbers."""
+    import torch
+
+    from repro_torch.distributed.steps import model_specs
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params, param_count
+    from repro_torch.serving.engine import check_servable
+
+    t0 = time.perf_counter()
+    rwkv = configs["rwkv6-7b"]
+    jamba = configs["jamba-1.5-large-398b"]
+    _free(device)
+    params = init_params(model_specs(rwkv), 0, device)
+    log(f"(a) {rwkv.name}: {rwkv.n_layers} layers, "
+        f"{param_count(lm.lm_specs(rwkv)) / 1e9:.2f} B parameters")
+    served = rwkv_serve(params, rwkv, device)
+    _free(device)
+    e_id, _ = check_identity(params, rwkv.replace(dtype="float32"))
+    spec = rwkv_spec(params, rwkv, device)
+    del params
+    _free(device)
+    rwkv_launches, rwkv_trained = train(
+        device, rwkv.replace(n_layers=min(rwkv.n_layers, RWKV_TRAIN_LAYERS),
+                             remat="full"), steps=3)
+    if rwkv_launches:
+        raise AssertionError(f"rwkv6 training launched {rwkv_launches}")
+    _free(device)
+
+    cut = _jamba_cut(jamba, mixer="hla2")
+    for mixer in (None, "hla2"):
+        try:
+            check_servable(cut if mixer else cut.replace(mixer=jamba.mixer))
+        except ValueError as e:
+            log(f"(d) Engine refuses {cut.name} ({mixer or jamba.mixer}): "
+                f"{e}")
+        else:
+            raise AssertionError("Engine accepted a hybrid stack")
+    # (e) first, in fp32: the same weights then serve (d) rounded to bf16
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params = init_params(lm.lm_specs(cut), 0, device)
+    log(f"(e) {cut.name} at one group, {cut.moe.n_experts} experts: "
+        f"{param_count(lm.lm_specs(cut)) / 1e9:.2f} B parameters")
+    e_jamba, agree = check_identity(params, _no_drop(cut).replace(
+        dtype="float32"))
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        log(f"(e) peak memory {peak:.2f} GiB")
+    _params_to(params, torch.bfloat16)
+    _free(device)
+    decoded = {}
+    for mixer in ("hla2", jamba.mixer):
+        mcfg = cut.replace(mixer=mixer, dtype="bfloat16",
+                           param_dtype="bfloat16")
+        decoded[mixer] = hybrid_decode(_attn_view(params, mcfg), mcfg,
+                                       device)
+        _free(device)
+    del params
+    _free(device)
+    half = _jamba_half(jamba)
+    log(f"(f) {half.name} at half width: "
+        f"{param_count(lm.lm_specs(half)) / 1e9:.2f} B parameters")
+    jamba_launches, jamba_trained = train(device, half, steps=3,
+                                          seq=1024, lr=JAMBA_LR)
+    log(f"phase 14 took {time.perf_counter() - t0:.1f}s")
+    return dict(served=served, rwkv_identity=e_id, spec=spec,
+                rwkv_trained=rwkv_trained, jamba_identity=e_jamba,
+                routing=agree, decoded=decoded, jamba_trained=jamba_trained,
+                jamba_train_launches=jamba_launches)
+
+
+# --------------------------------------------------------------------------
 # phase 7: timing
 # --------------------------------------------------------------------------
 
@@ -3241,6 +3545,24 @@ def time_d64(device, d64, moe):
     return rows
 
 
+def time_jamba(device, jamba_abs, hybrid):
+    """The three HLA2 kernels at phase 14's jamba shapes (d = dv = 128):
+    the forward at a 2-row prefill's 128 rows x 300 tokens, the step at a
+    decode step's 128 rows, the forward with checkpoints and the backward
+    at the half-width training's 64 rows x 1024.  ``jamba_abs`` holds
+    phase 2's errors at these shapes, ``hybrid`` phase 14's summary (its
+    launches).  Each row's name carries ``[jamba]``."""
+    rows = time_kernels(device, jamba_abs["chunk"], jamba_abs["step"],
+                        hybrid["decoded"]["hla2"]["launches"],
+                        rows_chunk=128, n=300, rows_step=128)
+    rows += time_train_kernels(device, "hla2", *jamba_abs["bwd"],
+                               hybrid["jamba_train_launches"], rows=64,
+                               n=1024)
+    for r in rows:
+        r["name"] += "[jamba]"
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3334,6 +3656,12 @@ def main() -> int:
         ahla_step=check_ahla_step(device, rows=96, d=64),
         bwd=check_chunk_bwd(device, rows=48, d=64),
         ahla_bwd=check_ahla_chunk_bwd(device, rows=48, d=64))
+    # phase 14's rows at jamba's 64 heads of 128 (8 KV heads broadcast): a
+    # 2-row prefill's 128 at 300 tokens (a ragged tail), a decode step's
+    # 128, the half-width training's 2 x 32 = 64 at 1024 tokens
+    jamba_abs = dict(chunk=check_chunk(device, rows=128, ns=(300,)),
+                     step=check_step(device, rows=128),
+                     bwd=check_chunk_bwd(device, rows=64, ns=(1024,)))
     torch.cuda.synchronize()
 
     check_small_model(device)
@@ -3364,6 +3692,7 @@ def main() -> int:
     family_phase(device)
     public_phase(device, {a: get_config(a) for a in PUBLIC})
     moe = moe_phase(device, {a: get_config(a) for a in MOE + ("hla-1b",)})
+    hybrid = hybrid_phase(device, {a: get_config(a) for a in HYBRID})
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels.append(time_verify(device, "hla2", verify_abs,
                                cfg.n_layers * spec["ngram"]["rounds"]))
@@ -3376,6 +3705,7 @@ def main() -> int:
     kernels += time_train_kernels(device, "ahla", ahla_bwd_abs, ahla_ckpt_abs,
                                   ahla_train_launches)
     kernels += time_d64(device, d64, moe)
+    kernels += time_jamba(device, jamba_abs, hybrid)
     log(f"all phases passed in {time.perf_counter() - T0:.0f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -332,11 +332,14 @@ def check_entry_points(cfg=None, *, device="cuda", seed: int = 0,
     from ..models import lm
     from ..models.param import init_params
     from ..optim import adamw
-    from ..serving.engine import Engine, GenRequest
+    from ..serving.engine import Engine, GenRequest, check_servable
     from ..serving.spec import SpecConfig
     from ..serving.state_pool import to_device
 
     cfg = default_config() if cfg is None else cfg
+    # the serving entry points need a config the engine admits (no KV
+    # cache, no hybrid stack): refuse before allocating anything
+    check_servable(cfg, SpecConfig(k=spec_k))
     device = torch.device(device)
     chunk = cfg.hla.chunk
     lengths = list(prompt_lengths or (chunk - 11, chunk - 5, chunk))

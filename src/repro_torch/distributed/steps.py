@@ -4,11 +4,30 @@ no ``grad_shardings``)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..models import lm
-from ..models.param import leaf_paths, tree_map
+from ..models.param import Spec, leaf_paths, tree_map
 from ..optim import adamw
+
+
+def model_specs(cfg):
+    """``lm.lm_specs(cfg)`` with every leaf stored in ``cfg.param_dtype``
+    (twin of the reference's ``steps.model_specs``; whisper is not
+    ported).  ``init_params`` and ``from_jax_params`` over these specs
+    give the parameters a train or serve run of ``cfg`` holds."""
+    specs = lm.lm_specs(cfg)
+    if cfg.param_dtype == "float32":
+        return specs
+
+    def cast(tree):
+        if isinstance(tree, Spec):
+            return dataclasses.replace(tree, dtype=cfg.param_dtype)
+        return {k: cast(v) for k, v in tree.items()}
+
+    return cast(specs)
 
 
 def accumulate_grads(params, batch, cfg, microbatches: int = 1):
@@ -21,8 +40,13 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
     parts' summed gradients are the full batch's, however unevenly the
     labels are masked.  Each part's backward adds into the leaves' ``.grad``
     (autograd's own accumulation), so one gradient set is live beside a
-    part's activations.  ``grads`` (a dict like ``params``) has the
-    parameters' dtype, fp32 (zeros for a leaf the loss does not reach);
+    part's activations; when ``cfg.grad_accum_dtype`` differs from a
+    leaf's dtype (bf16 parameters, fp32 accumulator), the parts' gradients
+    are summed in ``grad_accum_dtype`` instead, each cast as it arrives,
+    as the reference's accumulator does.  ``grads`` (a dict like
+    ``params``) has the parameters' dtype with one part, and
+    ``grad_accum_dtype`` with several (zeros for a leaf the loss does not
+    reach);
     ``loss`` and ``ce`` are sums over the parts.  The aux term stays a mean
     over the parts (router statistics do not decompose over rows): each
     part's loss weighs its aux by ``1 / microbatches``, and ``aux`` is the
@@ -39,6 +63,14 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
                 batch["labels"].chunk(microbatches),
                 [None] * microbatches if vis is None
                 else vis.chunk(microbatches))
+    acc_dt = getattr(torch, cfg.grad_accum_dtype)
+    # autograd's accumulation is the reference's wherever it adds in the
+    # accumulator's dtype
+    own_acc = microbatches > 1 and any(
+        x.dtype != acc_dt for _, x in leaf_paths(live))
+    acc = tree_map(lambda x: torch.zeros(x.shape, dtype=acc_dt,
+                                         device=x.device), live) \
+        if own_acc else None
     loss = ce = aux = 0.0
     for tokens, labels, vis_embed in parts:
         l, (c, a) = lm.lm_loss(live, tokens, labels, cfg,
@@ -47,10 +79,19 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
         l.backward()
         loss, ce = loss + l.detach(), ce + c.detach()
         aux = aux + a.detach()
-    # a leaf the loss does not reach (hla3_paper's decay_a) gets zeros, as
-    # jax.grad gives it
-    grads = tree_map(
-        lambda x: torch.zeros_like(x) if x.grad is None else x.grad, live)
+        if own_acc:
+            for (_, s), (_, x) in zip(leaf_paths(acc), leaf_paths(live)):
+                if x.grad is not None:
+                    s.add_(x.grad.to(acc_dt))
+                    x.grad = None
+    if own_acc:
+        grads = acc
+    else:
+        # a leaf the loss does not reach (hla3_paper's decay_a) gets zeros,
+        # as jax.grad gives it
+        grads = tree_map(
+            lambda x: torch.zeros_like(x) if x.grad is None else x.grad,
+            live)
     for _, x in leaf_paths(live):
         x.grad = None  # the returned dict holds the only reference
     return loss, ce, aux / microbatches, grads
@@ -59,10 +100,11 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
 def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
-    ``params`` is the fp32 parameter dict, ``batch`` holds ``tokens`` and
-    ``labels`` (``(B, n)`` integer tensors on the parameters' device, ``B``
-    a multiple of ``microbatches``) and optionally ``vis_embed`` (``(B, nv,
-    d_model)`` patch embeddings prepended to the tokens).  The gradient
+    ``params`` is the parameter dict (``model_specs(cfg)``'s dtypes),
+    ``batch`` holds ``tokens`` and ``labels`` (``(B, n)`` integer tensors
+    on the parameters' device, ``B`` a multiple of ``microbatches``) and
+    optionally ``vis_embed`` (``(B, nv, d_model)`` patch embeddings
+    prepended to the tokens).  The gradient
     comes from autograd through the model (``accumulate_grads``), whose
     mixer layers run ``kernels.ops.hla2_attention`` or ``ahla_attention``
     (``cfg.mixer``: forward and backward kernels on the card; ``cfg.remat

@@ -21,7 +21,11 @@ linear attention (its own weights layout, plain torch).  The engine
 serves streaming ops only: an arch whose op is softmax attention
 (``attn``, the seven public configs) serves with an HLA mixer in its
 place, e.g. ``--arch granite-moe-3b-a800m --mixer hla2``, and without
-one the engine refuses it, as the reference's does.  ``--spec ngram`` (prompt lookup)
+one the engine refuses it, as the reference's does.  rwkv6-7b serves its
+self-contained RWKV-6 layers (no override: it is attention-free); the
+engine refuses the hybrid jamba-1.5-large-398b with any mixer, as the
+reference's does, and the CLI exits with its message before allocating
+parameters.  ``--spec ngram`` (prompt lookup)
 or ``--spec lm`` (a draft LM: ``--draft-arch``, reduced, random weights,
 the target's vocabulary) decodes speculatively, ``--spec-k`` draft tokens
 a round.
@@ -61,11 +65,13 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..models import lm, seq_op
+from ..distributed.steps import model_specs
+from ..models import seq_op
 from ..models.param import init_params
 from ..obs import JsonlSink, Obs, profile_capture, write_metrics
 from ..runtime.faults import FaultPlan, parse_fault
 from ..serving import Engine, GenRequest, PrefixCache, SamplingConfig
+from ..serving.engine import check_servable
 from ..serving.spec import SpecConfig
 
 #: default cache key granularity: hla-1b's chunk width in the reference
@@ -152,9 +158,13 @@ def main(argv=None):
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     print(f"[serve] {cfg.name} on {name}")
-    params = init_params(lm.lm_specs(cfg), args.seed, device)
     spec = None if args.spec == "off" else SpecConfig(
         k=args.spec_k, drafter=args.spec, draft_arch=args.draft_arch)
+    try:  # the engine's refusal, before any parameter is allocated
+        check_servable(cfg, spec)
+    except ValueError as e:
+        raise SystemExit(f"[serve] {cfg.name} ({cfg.mixer}): {e}") from None
+    params = init_params(model_specs(cfg), args.seed, device)
     engine = Engine(
         cfg, params, slots=args.slots,
         max_len=args.prompt_len + args.gen_len + 8,

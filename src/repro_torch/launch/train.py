@@ -27,7 +27,11 @@ of ``configs/``; the seven public ones train softmax attention (``attn``,
 plain torch), internvl2-2b on tokens only, as the reference's CLI does,
 and granite-moe-3b-a800m and qwen3-moe-30b-a3b with their MoE FFNs,
 whose load-balance loss joins the loss (the summary line prints the last
-step's ``aux``).  ``--mixer ahla`` trains the same model with the AHLA
+step's ``aux``).  rwkv6-7b trains its self-contained RWKV-6 layers and
+jamba-1.5-large-398b its hybrid groups (7 Mamba layers and attention at
+position 4, MoE on every second layer), both plain torch, jamba with its
+bf16 parameters and moments (``param_dtype``, ``moment_dtype``).
+``--mixer ahla`` trains the same model with the AHLA
 mixer (its own kernels, the same parameter layout); ``--mixer hla3``,
 ``hla3_paper`` or ``linattn`` with the rest of the HLA family (plain
 torch, the same parameter layout); ``--mixer gla`` with gated linear
@@ -44,8 +48,8 @@ import torch
 
 from ..configs import get_config
 from ..data.pipeline import DataConfig, SyntheticStream
-from ..distributed.steps import make_train_step
-from ..models import lm, seq_op
+from ..distributed.steps import make_train_step, model_specs
+from ..models import seq_op
 from ..models.param import init_params
 from ..obs import JsonlSink, Obs, profile_capture, write_metrics
 from ..optim import adamw
@@ -96,10 +100,10 @@ def main(argv=None):
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     print(f"[train] {cfg.name} ({cfg.mixer}) on {name}")
-    params = init_params(lm.lm_specs(cfg), args.seed, device)
+    params = init_params(model_specs(cfg), args.seed, device)
     opt_cfg = adamw.OptConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 5))
-    opt_state = adamw.init_opt_state(params)
+    opt_state = adamw.init_opt_state(params, cfg.moment_dtype)
     train_step = make_train_step(cfg, opt_cfg,
                                  microbatches=args.microbatches)
     last_metrics = {}

@@ -1,7 +1,8 @@
-"""Elementary blocks: RMSNorm, dense (with an optional bias), embedding and
-its tied unembedding, RoPE, the MLPs — plain functions on parameter dicts
-(twin of ``repro/models/blocks.py``).  ``layernorm``, ``sinusoidal_pos`` and
-the mesh-aware embedding gather (whisper, multi-GPU) are not ported."""
+"""Elementary blocks: RMSNorm, LayerNorm, dense (with an optional bias),
+embedding and its tied unembedding, RoPE, the MLPs — plain functions on
+parameter dicts (twin of ``repro/models/blocks.py``).  ``sinusoidal_pos``
+and the mesh-aware embedding gather (whisper, multi-GPU) are not
+ported."""
 
 from __future__ import annotations
 
@@ -19,6 +20,21 @@ def rmsnorm_apply(p, x, eps: float = 1e-5):
     x32 = x.float()
     y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_specs(d: int):
+    return {"scale": Spec((d,), init="ones"),
+            "bias": Spec((d,), init="zeros")}
+
+
+def layernorm_apply(p, x, eps: float = 1e-5):
+    """LayerNorm in fp32 (population variance), scale and bias applied in
+    fp32; the result in ``x``'s dtype."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def dense_specs(d_in: int, d_out: int, bias: bool = False):

@@ -1,6 +1,6 @@
 """Model configuration dataclasses: own copy of the reference's
-``MoEConfig``, ``HLAConfig`` and ``ModelConfig`` fields that the port
-reads.  The hla2/ahla kernels pick their own chunk width
+``MoEConfig``, ``HLAConfig``, ``MambaConfig`` and ``ModelConfig`` fields
+that the port reads.  The hla2/ahla kernels pick their own chunk width
 (``kernels.hla2_chunk.W``) and outputs do not depend on it;
 ``HLAConfig.chunk`` is the reference's, the chunk width of the plain
 records (``hla3``, ``hla3_paper``, ``linattn``), and read by the cost
@@ -19,7 +19,8 @@ class MoEConfig:
     top_k: int
     d_ff: int  # per-expert hidden size
     capacity_factor: float = 1.25
-    every: int = 1  # every-th layer is MoE; only 1 (all layers) is ported
+    every: int = 1  # every-th layer of a hybrid group is MoE (jamba: 2);
+    #   a uniform stack puts an MoE FFN on every layer, as the reference
     aux_loss_coef: float = 0.01
 
 
@@ -37,6 +38,14 @@ class HLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 => d_model // 16
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     n_layers: int
@@ -48,16 +57,28 @@ class ModelConfig:
     d_head: int = 0  # 0 => d_model // n_heads
     mixer: str = "hla2"  # the registered SequenceOp ("softmax" = "attn")
     mlp: str = "swiglu"  # swiglu | squared_relu | gelu | relu
-    moe: Optional[MoEConfig] = None  # an MoE FFN in place of every MLP
+    moe: Optional[MoEConfig] = None  # MoE FFNs in place of the MLPs
     hla: HLAConfig = dataclasses.field(default_factory=HLAConfig)
+    mamba: Optional[MambaConfig] = None
     qkv_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
+    # hybrid pattern (jamba): layers come in groups; within a group, layer
+    # `attn_index` is the configured mixer and the rest are mamba; every
+    # `moe.every`-th layer of the group carries an MoE FFN.
+    group_size: int = 0  # 0 = uniform stack
+    attn_index: int = 0
     # vlm: number of precomputed patch-embedding tokens (stub frontend)
     vis_tokens: int = 0
-    dtype: str = "bfloat16"  # activation/compute dtype; parameters are fp32
-    remat: str = "none"  # none | full (per-layer recompute in training)
+    # rwkv6
+    rwkv_head_dim: int = 64
+    dtype: str = "bfloat16"  # activation/compute dtype
+    param_dtype: str = "float32"  # storage dtype (jamba-scale: bfloat16)
+    moment_dtype: str = "float32"  # AdamW mu/nu (jamba-scale: bfloat16)
+    grad_accum_dtype: str = "float32"  # microbatch gradient accumulator
+    remat: str = "none"  # none | full (recompute a layer, or a hybrid
+    #   stack's whole group, in training)
 
     def __post_init__(self):
         if self.remat == "dots":
@@ -67,15 +88,14 @@ class ModelConfig:
         if self.remat not in ("none", "full"):
             raise ValueError(f"remat must be 'none' or 'full', got "
                              f"{self.remat!r}")
-        if self.moe is not None and self.moe.every != 1:
-            raise ValueError(
-                f"MoEConfig.every={self.moe.every} (an MoE FFN on every "
-                "every-th layer of a hybrid group) is not ported yet; use "
-                "every=1")
 
     @property
     def head_dim(self) -> int:
         return self.d_head or (self.d_model // max(1, self.n_heads))
+
+    @property
+    def attn_free(self) -> bool:
+        return self.mixer in ("rwkv6",)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,19 +1,33 @@
-"""Decoder-only LM over a uniform stack of one ``SequenceOp`` (twin of the
-uniform-stack half of ``repro/models/lm.py``).
+"""Decoder-only LM over a uniform or a hybrid stack of ``SequenceOp``
+layers (twin of ``repro/models/lm.py``).
 
 Layer parameters are stacked (leading ``layers`` axis on every leaf, the
 reference's layout) and a Python loop over layers replaces ``lax.scan``.
-Decode states are the op's state tree (``state_tree``: flat for hla2/ahla,
-nested for hla3, a ``KVCache`` for attn) with every leaf ``(layers, B,
-...)``.  A streaming op decodes through its ``step``; a non-streaming one
-(attn) through its ``forward`` over the one token against its state.  An
-op with ``prealloc_state`` (attn) prefills into preallocated states, in
-place.  ``positions`` reach the op only when it ``needs_positions``.
-``cfg.remat == "full"`` recomputes each layer's activations in the
-backward pass of ``mode="train"`` (``torch.utils.checkpoint``).  With
-``cfg.moe`` every layer's MLP is an MoE FFN (``models/moe.py``), whose
-load-balance loss ``lm_apply`` sums over the layers and ``lm_loss`` adds
-to the cross-entropy, as the reference does.
+A hybrid (jamba) stack, ``cfg.group_size > 0``, comes in groups: within a
+group, position ``attn_index`` is the configured mixer and the others are
+``mamba``; position ``i`` carries an MoE FFN when ``i % moe.every ==
+moe.every - 1``.  Its parameters are ``groups/pos{i}/...``, stacked over
+the ``n_layers // group_size`` groups, and the loop runs over groups, then
+positions.  A uniform stack puts an MoE FFN in every layer when
+``cfg.moe`` is set.  A ``self_contained`` op (rwkv6) is the whole layer:
+its record owns the norms and the channel mix and runs on the residual
+stream.
+
+Decode states are each op's state tree (``state_tree``: flat for
+hla2/ahla, nested for hla3, a ``KVCache`` for attn) with every leaf
+``(layers, B, ...)``; a hybrid stack's are ``{"pos{i}": tree}`` with every
+leaf ``(groups, B, ...)``.  A streaming op decodes through its ``step``
+and a non-streaming one (attn) through its ``forward`` over the one token;
+either way decode updates the states in place.  A prefill resumes from
+the states it is given and only reads them, except a KV cache, which its
+``forward`` fills in place; when any op of the stack has
+``prealloc_state`` (attn, mamba), a prefill given no states allocates
+zero ones first.  ``positions`` reach an op only when it
+``needs_positions``.  ``cfg.remat == "full"`` recomputes a layer (a
+hybrid stack: a whole group, the reference's remat unit) in the backward
+pass of ``mode="train"`` (``torch.utils.checkpoint``).  The MoE layers'
+load-balance losses are summed over the stack and ``lm_loss`` adds them to
+the cross-entropy, as the reference does.
 """
 
 from __future__ import annotations
@@ -35,24 +49,47 @@ from .blocks import (
     rmsnorm_specs,
     unembed_apply,
 )
-from .param import Spec, leaf_paths
+from .param import Spec
 from .state_tree import tree_map
 
 MODES = ("train", "prefill", "decode")
 
 
-def layer_specs(cfg):
-    op = seq_op.op_for(cfg)
+def layer_specs(cfg, op: seq_op.SequenceOp, use_moe: bool):
+    if op.self_contained:  # e.g. rwkv6: owns its norms and channel mix
+        return op.specs(cfg)
     s = {
         "ln1": rmsnorm_specs(cfg.d_model),
         "ln2": rmsnorm_specs(cfg.d_model),
         op.param_key: op.specs(cfg),
     }
-    if cfg.moe is not None:
+    if use_moe:
         s["moe"] = moe_mod.moe_specs(cfg)
     else:
         s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp)
     return s
+
+
+def _group_layout(cfg):
+    """A hybrid group's ``(op, use_moe)`` per position: the configured
+    mixer at ``attn_index``, mamba elsewhere; MoE on every
+    ``moe.every``-th position."""
+    mix_op = seq_op.op_for(cfg)
+    mamba_op = seq_op.get_op("mamba")
+    return [(mix_op if i == cfg.attn_index else mamba_op,
+             cfg.moe is not None and i % cfg.moe.every == cfg.moe.every - 1)
+            for i in range(cfg.group_size)]
+
+
+def stack_layout(cfg):
+    """``([(key, op, use_moe)], units)``: the positions of one unit of the
+    stack and how many units there are.  A uniform stack's unit is one
+    layer (key None); a hybrid stack's is a group (keys ``pos{i}``)."""
+    if cfg.group_size:
+        return ([(f"pos{i}", op, moe)
+                 for i, (op, moe) in enumerate(_group_layout(cfg))],
+                cfg.n_layers // cfg.group_size)
+    return [(None, seq_op.op_for(cfg), cfg.moe is not None)], cfg.n_layers
 
 
 def _stack(tree, L: int):
@@ -62,11 +99,15 @@ def _stack(tree, L: int):
 
 
 def lm_specs(cfg):
-    specs = {
-        "embed": embed_specs(cfg.vocab, cfg.d_model),
-        "layers": _stack(layer_specs(cfg), cfg.n_layers),
-        "final_norm": rmsnorm_specs(cfg.d_model),
-    }
+    specs = {"embed": embed_specs(cfg.vocab, cfg.d_model)}
+    layout, units = stack_layout(cfg)
+    if cfg.group_size:
+        specs["groups"] = _stack({key: layer_specs(cfg, op, moe)
+                                  for key, op, moe in layout}, units)
+    else:
+        _, op, moe = layout[0]
+        specs["layers"] = _stack(layer_specs(cfg, op, moe), units)
+    specs["final_norm"] = rmsnorm_specs(cfg.d_model)
     if not cfg.tie_embeddings:
         specs["unembed"] = {"kernel": Spec((cfg.d_model, cfg.vocab))}
     return specs
@@ -74,39 +115,55 @@ def lm_specs(cfg):
 
 def cast_params(params, cfg):
     """The parameters as the forward pass reads them: dense kernels and
-    biases, the embedding table and the MoE experts' weights in
+    their biases, the embedding table and the MoE experts' weights in
     ``cfg.dtype`` (the forward casts them to the activation dtype at every
-    use; casting once gives the same values); norm scales, decay logits
-    and the MoE router kept fp32 (the router routes in fp32 from the fp32
-    weights: bf16-rounded weights would pick other experts)."""
+    use; casting once gives the same values).  Everything else keeps its
+    dtype and is cast where it is used, as the reference does: norm scales
+    and LayerNorm biases (added in fp32 inside the norm), decay logits,
+    the MoE router (it routes in fp32 from its weights: bf16-rounded ones
+    would pick other experts), Mamba's ``A_log``, ``D`` and conv taps,
+    RWKV's mix ratios, ``w0``, ``u`` and GroupNorm.  A leaf already in
+    ``cfg.dtype`` (``param_dtype="bfloat16"``) is not copied."""
     dt = getattr(torch, cfg.dtype)
-    out = {}
-    for path, x in leaf_paths(params):
-        node = out
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        if "moe" in path:
-            cast = path[-1] in moe_mod.EXPERT_LEAVES
-        else:
-            cast = path[-1] in ("kernel", "bias", "embedding")
-        node[path[-1]] = x.to(dt) if cast else x
-    return out
+
+    def walk(node, in_moe):
+        out = {}
+        for key, x in node.items():
+            if isinstance(x, dict):
+                out[key] = walk(x, in_moe or key == "moe")
+                continue
+            if in_moe:
+                cast = key in moe_mod.EXPERT_LEAVES
+            else:  # a bias beside a kernel is a dense layer's
+                cast = key in ("kernel", "embedding") or (
+                    key == "bias" and "kernel" in node)
+            out[key] = x.to(dt) if cast else x
+        return out
+
+    return walk(params, False)
 
 
 def needs_prealloc_states(cfg) -> bool:
-    """True when prefill writes into preallocated states (a KV cache)
-    rather than building its states from scratch: the op's
-    ``prealloc_state`` flag."""
-    return seq_op.op_for(cfg).prealloc_state
+    """True when a prefill given no states starts from preallocated ones
+    (a KV cache, which it fills; a hybrid stack's zero carry): some op of
+    the stack has the ``prealloc_state`` flag."""
+    return any(op.prealloc_state for _, op, _ in stack_layout(cfg)[0])
 
 
 def lm_init_states(cfg, B: int, device, max_len: int = 0):
     """Zero decode states, every leaf ``(layers, B, ...)`` (a KV cache's
-    shared ``length`` ``(layers,)``), each layer its own memory.
+    shared ``length`` ``(layers,)``); a hybrid stack's ``{"pos{i}": ...}``
+    with every leaf ``(groups, B, ...)``.  Each layer has its own memory.
     ``max_len`` sizes a KV cache; a streaming state ignores it."""
-    one = seq_op.op_for(cfg).init_state(cfg, B, device, max_len=max_len)
-    return tree_map(lambda x: x.expand((cfg.n_layers,) + x.shape).clone(),
-                    one)
+    layout, units = stack_layout(cfg)
+
+    def stacked(op):
+        one = op.init_state(cfg, B, device, max_len=max_len)
+        return tree_map(lambda x: x.expand((units,) + x.shape).clone(), one)
+
+    if cfg.group_size:
+        return {key: stacked(op) for key, op, _ in layout}
+    return stacked(layout[0][1])
 
 
 def _layer(tree, l: int):
@@ -115,22 +172,51 @@ def _layer(tree, l: int):
     return tree[l]
 
 
-def _block(p, x, cfg, mix):
-    """One layer: ln1 -> mixer -> residual -> ln2 -> MLP (or MoE FFN) ->
-    residual.  ``mix(layer_params, h)`` runs the mixer on its own params
-    (the record's ``param_key``) and returns ``(y, state)``.  Returns ``(x,
-    state, aux)``, ``aux`` the MoE layer's load-balance loss (None without
-    ``cfg.moe``).  It is the unit ``remat="full"`` recomputes (twin of the
-    reference's ``_maybe_remat`` around its layer body), so the MoE block
-    is recomputed too and its aux leaves the checkpoint as an output."""
-    y, st = mix(p, rmsnorm_apply(p["ln1"], x, cfg.norm_eps))
+def _block(p, x, cfg, op, use_moe, mix):
+    """One layer.  ``mix(sub_params, h)`` runs the op and returns ``(y,
+    state)``.  A self-contained op is the layer: ``mix`` runs on the
+    residual stream with the layer's params and returns the new stream.
+    Otherwise ln1 -> op (its params under ``param_key``) -> residual ->
+    ln2 -> MLP or MoE FFN -> residual.  Returns ``(x, state, aux)``,
+    ``aux`` the MoE layer's load-balance loss (None without one)."""
+    if op.self_contained:
+        x, st = mix(p, x)
+        return x, st, None
+    y, st = mix(p[op.param_key], rmsnorm_apply(p["ln1"], x, cfg.norm_eps))
     x = x + y
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    if cfg.moe is not None:
+    if use_moe:
         y, aux = moe_mod.moe_apply(p["moe"], h, cfg)
     else:
         y, aux = mlp_apply(p["mlp"], h, cfg.mlp), None
     return x + y, st, aux
+
+
+def _unit(p, x, cfg, layout, mixes):
+    """One unit of the stack (a layer, or a hybrid group's positions in
+    order, position ``key`` on ``p[key]``).  It is what ``remat="full"``
+    recomputes (twin of the reference's ``_maybe_remat`` around its scan
+    body), so MoE blocks are recomputed too and their aux leaves the
+    checkpoint as an output.  Returns ``(x, [state per position],
+    aux)``, ``aux`` None when no position has an MoE FFN."""
+    states, aux = [], None
+    for (key, op, use_moe), mix in zip(layout, mixes):
+        x, st, a = _block(p if key is None else p[key], x, cfg, op, use_moe,
+                          mix)
+        states.append(st)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, states, aux
+
+
+def _mixer(op, cfg, mode, st, kw):
+    """The op's call for one layer: its step in decode (streaming ops),
+    else its forward over the block against ``st``."""
+    kw = kw if op.needs_positions else {}
+    if mode == "decode" and op.streaming:
+        return lambda sub, h: op.step(sub, h, st, cfg, **kw)
+    return lambda sub, h: op.forward(sub, h, cfg, state=st,
+                                     want_state=mode != "train", **kw)
 
 
 def _trunk(params, tokens, cfg, states, mode, positions=None,
@@ -142,53 +228,63 @@ def _trunk(params, tokens, cfg, states, mode, positions=None,
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "decode" and states is None:
         raise ValueError("decode needs states")
-    op = seq_op.op_for(cfg)
+    layout, units = stack_layout(cfg)
+    hybrid = bool(cfg.group_size)
     dt = getattr(torch, cfg.dtype)
     x = embed_apply(params["embed"], tokens).to(dt)
     if vis_embed is not None:
         x = torch.cat([vis_embed.to(dt), x], 1)
     n = x.shape[1]
     kw = {}
-    if op.needs_positions:
+    need_pos = [op.name for _, op, _ in layout if op.needs_positions]
+    if need_pos:
         if positions is None:
             if mode == "decode":
-                raise ValueError(f"decode with {op.name!r} needs the "
+                raise ValueError(f"decode with {need_pos[0]!r} needs the "
                                  "tokens' positions")
             positions = torch.arange(n, device=x.device)[None]
         kw["positions"] = positions
-    # a prealloc op's prefill, and every decode, update states in place
-    prealloc = needs_prealloc_states(cfg)
-    in_place = mode == "decode" or (mode == "prefill" and prealloc)
-    if mode == "prefill" and states is None and prealloc:
+    if mode == "prefill" and states is None and needs_prealloc_states(cfg):
         # room for the prompt and a margin of decode steps
         states = lm_init_states(cfg, x.shape[0], x.device, max_len=n + 64)
-    # under remat a layer's activations are recomputed in backward
+    # under remat a unit's activations are recomputed in backward
     remat = (mode == "train" and cfg.remat == "full"
              and torch.is_grad_enabled())
-    new = []
+    stack = params["groups" if hybrid else "layers"]
+    ins, outs = [], []  # each unit's per-position states in and out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l in range(cfg.n_layers):
-        p = _layer(params["layers"], l)
+    for l in range(units):
+        p = _layer(stack, l)
         st = None if states is None else tree_map(lambda s: s[l], states)
-        if mode == "decode" and op.streaming:
-            mix = lambda pl, h, st=st: op.step(  # noqa: E731
-                pl[op.param_key], h, st, cfg, **kw)
-        else:
-            mix = lambda pl, h, st=st: op.forward(  # noqa: E731
-                pl[op.param_key], h, cfg, state=st,
-                want_state=mode != "train", **kw)
-        x, st, a = checkpoint(_block, p, x, cfg, mix, use_reentrant=False) \
-            if remat else _block(p, x, cfg, mix)
+        st_in = [None if st is None else st[key] if hybrid else st
+                 for key, _, _ in layout]
+        mixes = [_mixer(op, cfg, mode, s, kw)
+                 for (_, op, _), s in zip(layout, st_in)]
+        x, st_out, a = checkpoint(_unit, p, x, cfg, layout, mixes,
+                                  use_reentrant=False) \
+            if remat else _unit(p, x, cfg, layout, mixes)
         if a is not None:
             aux = aux + a
-        if mode == "prefill" and not in_place:
-            new.append(st)
+        if mode == "prefill":
+            ins.append(st_in)
+            outs.append(st_out)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if mode == "train":
         return x, None, aux
-    if in_place:
+    if mode == "decode":
         return x, states, aux  # updated in place, layer by layer
-    return x, tree_map(lambda *per_layer: torch.stack(per_layer), *new), aux
+    new = []
+    for i, (key, _, _) in enumerate(layout):
+        per_unit = [o[i] for o in outs]
+        if states is not None and all(o is s[i] for o, s in
+                                      zip(per_unit, ins)):
+            # the op filled the given states in place (a KV cache)
+            new.append(states[key] if hybrid else states)
+        else:
+            new.append(tree_map(lambda *xs: torch.stack(xs), *per_unit))
+    if hybrid:
+        return x, {key: t for (key, _, _), t in zip(layout, new)}, aux
+    return x, new[0], aux
 
 
 def _unembed(params, x, cfg):
@@ -205,10 +301,11 @@ def lm_apply(params, tokens, cfg, *, states=None, positions=None,
     scalar tensor, 0 without ``cfg.moe``).
 
     ``train``: full sequence, no state (``states`` None on return);
-    ``prefill``: full sequence resumed from ``states`` (or zero), returns
-    the new stacked decode states (a KV cache: filled in place, allocated
-    for ``n + 64`` tokens when not given); ``decode``: one token per row,
-    **updates ``states`` in place** and returns the same object.
+    ``prefill``: full sequence resumed from ``states`` (or zero; only
+    read), returns the new stacked decode states (a KV cache: filled in
+    place, allocated for ``n + 64`` tokens when not given); ``decode``:
+    one token per row, **updates ``states`` in place** and returns the
+    same object.
     ``positions`` (default ``arange(n)``; decode must pass them) reach an
     op that needs them.
     """
@@ -234,7 +331,8 @@ def lm_score_block(params, tokens, cfg, *, states):
     draft_1..draft_k]``.  Returns ``(logits (B, k+1, vocab), new_states)``:
     ``logits[:, j]`` is the next-token distribution after ``tokens[:,
     :j+1]``, and ``new_states`` (new tensors) have consumed the whole block.
-    ``states`` is only read: the chunk kernels take their carry read-only.
+    ``states`` is only read: every spec-decodable op's forward (the chunk
+    kernels, mamba, rwkv6, ...) takes its carry read-only.
     Takes no ``positions``, unlike the reference: no spec-decodable op of
     the port consumes them (``attn`` is not spec-decodable).
     """

@@ -4,7 +4,9 @@ Same key paths and layouts as ``repro/models/param.py``: dense kernels are
 ``(d_in, d_out)``, layer parameters carry a leading stacked ``layers`` axis.
 The init scheme is the reference's: fan-in truncated normal in [-2, 2]
 (the fan-in is the product of all but the last dim, the stacked axis
-included), ``embed`` normal at 0.02, ``decay_a`` constant 3.0.  Torch's
+included), ``embed`` normal at 0.02, ``decay_a`` constant 3.0.  A leaf is
+stored in its spec's ``dtype`` (fp32 unless ``model_specs`` applies the
+config's ``param_dtype``); it is drawn in fp32 and then cast.  Torch's
 generator is not JAX's threefry, so equal seeds give other numbers; tests
 carry the reference's own parameters across with ``from_jax_params``.
 """
@@ -26,6 +28,7 @@ class Spec:
     init: str = "normal"  # normal | ones | zeros | embed | constant
     scale: Optional[float] = None  # override; default fan-in scaling
     const: float = 0.0  # for init == "constant"
+    dtype: str = "float32"  # storage dtype
 
 
 def leaf_paths(tree, prefix=()):
@@ -49,8 +52,10 @@ def param_count(specs) -> int:
 
 
 def param_bytes(specs) -> int:
-    """Bytes of the parameters ``specs`` describe: every leaf is fp32."""
-    return 4 * param_count(specs)
+    """Bytes of the parameters ``specs`` describe, each leaf in its
+    ``dtype``."""
+    return sum(math.prod(s.shape) * getattr(torch, s.dtype).itemsize
+               for _, s in leaf_paths(specs))
 
 
 def _set(tree, path, value):
@@ -92,7 +97,8 @@ def init_params(specs, seed: int, device="cuda"):
         gen.manual_seed(
             (seed * 1_000_003 + zlib.crc32("/".join(path).encode()))
             % (2**63))
-        _set(out, path, _init_leaf(spec, gen, device))
+        _set(out, path, _init_leaf(spec, gen, device).to(
+            getattr(torch, spec.dtype)))
     return out
 
 
@@ -100,7 +106,9 @@ def from_jax_params(tree, specs, device="cuda"):
     """Carry the reference's parameters across: ``tree`` is the output of
     ``jax.device_get(init_params(lm_specs(cfg), key))`` (numpy leaves, the
     stacked ``layers`` axis leading); ``specs`` is this package's
-    ``lm_specs(cfg)``.  Returns fp32 torch tensors on ``device``."""
+    ``lm_specs(cfg)`` (or ``model_specs(cfg)``).  Returns torch tensors on
+    ``device`` in each spec's ``dtype`` (fp32 unless the specs say
+    otherwise)."""
     got = dict(leaf_paths(tree))
     want = dict(leaf_paths(specs))
     if set(got) != set(want):
@@ -113,6 +121,7 @@ def from_jax_params(tree, specs, device="cuda"):
         if arr.shape != tuple(spec.shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, want "
                              f"{spec.shape}")
-        _set(out, path, torch.from_numpy(arr.copy()).to(device))
+        _set(out, path, torch.from_numpy(arr.copy()).to(
+            device, getattr(torch, spec.dtype)))
     return out
 

@@ -8,8 +8,10 @@ keeps the record's parameters under its ``param_key``.  State trees are
 whatever ``init_state`` returns (``models/state_tree.py`` walks them).
 The port registers the HLA family, ``hla2``, ``ahla``, ``hla3``,
 ``hla3_paper`` and ``linattn`` (``models/mixer.py``), softmax
-attention, ``attn`` (``models/attention.py``), and gated linear
-attention, ``gla`` (``models/gla.py``, the registry's worked example).
+attention, ``attn`` (``models/attention.py``), gated linear attention,
+``gla`` (``models/gla.py``, the registry's worked example), Mamba,
+``mamba`` (``models/ssm.py``), and the self-contained RWKV-6 layer,
+``rwkv6`` (``models/rwkv6.py``).
 
 Capability flags (the reference's): ``streaming`` (a constant-size
 per-slot decode state, so slots batch continuously; requires a ``step``),
@@ -18,8 +20,9 @@ hand-written kernels, chosen inside the record), ``spec_decodable`` (the
 state can be snapshot and rolled back, so speculative decoding may verify
 over it), ``needs_positions`` (consumes absolute positions, e.g. RoPE),
 ``self_contained`` (owns its norms and channel mix, replacing the whole
-block), ``prealloc_state`` (prefill writes into a preallocated state,
-e.g. a KV cache).  The reference's ``state_axes`` / ``state_ndims`` are
+block), ``prealloc_state`` (a prefill given no state starts from a preallocated
+one: a KV cache, which it fills in place, or, as the reference's mamba
+has it, a zero carry).  The reference's ``state_axes`` / ``state_ndims`` are
 sharding data and wait for a multi-GPU port.
 """
 
@@ -84,7 +87,7 @@ def register_op(op: SequenceOp) -> SequenceOp:
 
 def _ensure_builtins() -> None:
     # imported for their register_op side effect
-    from . import attention, gla, mixer  # noqa: F401
+    from . import attention, gla, mixer, rwkv6, ssm  # noqa: F401
 
 
 def _unknown(name) -> SequenceOpError:

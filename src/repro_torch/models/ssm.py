@@ -1,0 +1,218 @@
+"""Selective SSM (Mamba) block: chunked scan and decode state (twin of
+``repro/models/ssm.py``).
+
+The recurrence ``h_t = a_t * h_{t-1} + b_t`` (diagonal, data-dependent)
+runs chunk-parallel as the HLA monoids do: an inclusive associative scan
+inside a chunk (``core/_scan.py``, the port's stand-in for
+``lax.associative_scan``) and a sequential carry across chunks (a Python
+loop in place of ``lax.scan``).  The 4-D ``(B, w, d_inner, d_state)``
+tensors exist one chunk at a time.  Under autograd each chunk is
+recomputed in the backward pass (``torch.utils.checkpoint``), so what
+stays alive for the backward is the chunk's inputs and its carry, not the
+scan's ``log2 w`` rounds of 4-D tensors: at jamba's width (d_inner 16384)
+one such tensor of a 128-token chunk is 268 MB a row pair.
+
+Plain torch, as the reference is plain jnp: Mamba has no TPU kernel.  The
+decode state's ``conv`` leaf is kept in the activation dtype
+(``cfg.dtype``); the reference allocates it in bf16 and its first call
+returns it in the activation dtype, so the values are the same (zeros,
+then the activations).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..core._scan import associative_scan
+from . import seq_op
+from .blocks import dense_apply, dense_specs
+from .param import Spec
+
+MAMBA_CHUNK = 128  # the reference's ``mamba_apply`` chunk
+
+
+class _Affine(NamedTuple):
+    a: torch.Tensor  # decay
+    b: torch.Tensor  # input
+
+
+def _first_order_op(x: _Affine, y: _Affine) -> _Affine:
+    """``x`` then ``y``: ``h -> y.a * (x.a * h + x.b) + y.b``."""
+    return _Affine(y.a * x.a, y.a * x.b + y.b)
+
+
+def chunked_linear_recurrence(a, b, h0, chunk: int = 128):
+    """``h_t = a_t * h_{t-1} + b_t`` along axis 1; ``a``, ``b``: ``(B, n,
+    ...)``, ``h0``: ``(B, ...)``.  Returns ``(h (B, n, ...), h_final)``.
+    Exact up to the regrouping of the products; ``n`` must be a multiple
+    of ``min(chunk, n)``, as in the reference."""
+    n = a.shape[1]
+    w = min(chunk, n)
+    if n % w:
+        raise ValueError(f"n={n} is not a multiple of the chunk {w}")
+    h, hs = h0, []
+    for c0 in range(0, n, w):
+        acc = associative_scan(_first_order_op, _Affine(
+            a[:, c0:c0 + w].movedim(1, 0), b[:, c0:c0 + w].movedim(1, 0)))
+        h_t = acc.a * h[None] + acc.b  # (w, B, ...)
+        h = h_t[-1]
+        hs.append(h_t.movedim(0, 1))
+    return torch.cat(hs, 1), h
+
+
+class MambaState(NamedTuple):
+    conv: torch.Tensor  # (B, d_conv - 1, d_inner) rolling conv inputs
+    h: torch.Tensor  # (B, d_inner, d_state) fp32
+
+
+def mamba_specs(cfg):
+    d = cfg.d_model
+    mc = cfg.mamba
+    d_in = mc.expand * d
+    dt_rank = mc.dt_rank or max(1, d // 16)
+    return {
+        "in_proj": dense_specs(d, 2 * d_in),
+        "conv_w": Spec((mc.d_conv, d_in), init="normal"),
+        "conv_b": Spec((d_in,), init="zeros"),
+        "x_proj": dense_specs(d_in, dt_rank + 2 * mc.d_state),
+        "dt_proj": {
+            "kernel": Spec((dt_rank, d_in)),
+            "bias": Spec((d_in,), init="constant", const=0.54),
+        },
+        "A_log": Spec((d_in, mc.d_state), init="constant", const=0.0),
+        "D": Spec((d_in,), init="ones"),
+        "out_proj": dense_specs(d_in, d),
+    }
+
+
+def _causal_depthwise_conv(x, w, b, prepend=None):
+    """``x (B, n, D)``, ``w (K, D)`` depthwise, causal (left) padding by
+    ``prepend (B, K - 1, D)`` (zeros when None).  Returns ``(out, the last
+    K - 1 inputs)``, both in ``x``'s dtype."""
+    K = w.shape[0]
+    if prepend is None:
+        prepend = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    xp = torch.cat([prepend.to(x.dtype), x], 1)
+    n = x.shape[1]
+    out = xp[:, :n] * w[0].to(x.dtype)
+    for i in range(1, K):  # K is tiny (4): unrolled taps
+        out = out + xp[:, i:i + n] * w[i].to(x.dtype)
+    return out + b.to(x.dtype), xp[:, n:] if K > 1 else prepend
+
+
+def _scan_chunk(h, dt, Bc, Cc, x, A):
+    """One chunk of the selective scan, every input fp32: ``dt``, ``x``
+    ``(B, w, d_in)``, ``Bc``, ``Cc`` ``(B, w, ds)``, ``A (d_in, ds)``, carry
+    ``h (B, d_in, ds)``.  Returns ``(h at the chunk's end, y (B, w,
+    d_in))``."""
+    dtT = dt.transpose(0, 1)  # (w, B, d_in): the scan's axis leads
+    decay = torch.exp(dtT[..., None] * A)
+    bu = (dtT * x.transpose(0, 1))[..., None] * Bc.transpose(0, 1)[:, :, None]
+    acc = associative_scan(_first_order_op, _Affine(decay, bu))
+    hseq = acc.a * h[None] + acc.b  # (w, B, d_in, ds)
+    y = torch.einsum("wbds,wbs->bwd", hseq, Cc.transpose(0, 1))
+    return hseq[-1], y
+
+
+def mamba_apply(p, x, cfg, state: Optional[MambaState] = None,
+                chunk: int = MAMBA_CHUNK):
+    """``x (B, n, d)``, resumed from ``state`` when given (only read).
+    Returns ``(y (B, n, d), MambaState)``: ``conv`` in ``x``'s dtype, ``h``
+    fp32."""
+    B, n, d = x.shape
+    mc = cfg.mamba
+    d_in = mc.expand * d
+    ds = mc.d_state
+
+    xz = dense_apply(p["in_proj"], x)
+    xin, z = xz[..., :d_in], xz[..., d_in:]
+    xc, conv_tail = _causal_depthwise_conv(
+        xin, p["conv_w"], p["conv_b"],
+        prepend=state.conv if state is not None else None)
+    xc = F.silu(xc)
+
+    proj = dense_apply(p["x_proj"], xc)
+    dt_rank = p["dt_proj"]["kernel"].shape[0]
+    Bc = proj[..., dt_rank:dt_rank + ds].float()
+    Cc = proj[..., dt_rank + ds:].float()
+    dt = F.softplus(dense_apply(p["dt_proj"], proj[..., :dt_rank]).float())
+    A = -torch.exp(p["A_log"].float())  # (d_in, ds)
+    xf = xc.float()
+
+    w = min(chunk, n)
+    pad = (w - n % w) % w
+    if pad:  # dt = 0 in the tail: decay 1, input 0, so the carry is exact
+        dt, Bc, Cc, xp = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bc, Cc, xf))
+    else:
+        xp = xf
+    h = state.h.float() if state is not None else \
+        x.new_zeros((B, d_in, ds), dtype=torch.float32)
+    ys = []
+    for c0 in range(0, n + pad, w):
+        args = (h,) + tuple(t[:, c0:c0 + w] for t in (dt, Bc, Cc, xp)) + (A,)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            # recompute the chunk in backward instead of keeping its scan
+            h, y = checkpoint(_scan_chunk, *args, use_reentrant=False)
+        else:
+            h, y = _scan_chunk(*args)
+        ys.append(y)
+    y = torch.cat(ys, 1)[:, :n]
+    y = y + xf * p["D"].float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = dense_apply(p["out_proj"], y)
+    return out, MambaState(conv=conv_tail.to(x.dtype), h=h)
+
+
+def mamba_init_state(cfg, B, device, dtype=torch.float32) -> MambaState:
+    """Zero state: ``conv`` in the activation dtype ``cfg.dtype`` (see the
+    module docstring), ``h`` in ``dtype``."""
+    mc = cfg.mamba
+    d_in = mc.expand * cfg.d_model
+    return MambaState(
+        conv=torch.zeros((B, mc.d_conv - 1, d_in),
+                         dtype=getattr(torch, cfg.dtype), device=device),
+        h=torch.zeros((B, d_in, mc.d_state), dtype=dtype, device=device),
+    )
+
+
+# --------------------------------------------------------------------------
+# SequenceOp registration
+# --------------------------------------------------------------------------
+
+
+def _mamba_forward(p, x, cfg, *, state=None, want_state=True):
+    """Train / prefill over ``x (B, n, d_model)``; ``state`` is only read.
+    Returns ``(y, new MambaState)``."""
+    del want_state  # the final state costs nothing beyond the last chunk
+    return mamba_apply(p, x, cfg, state=state)
+
+
+def _mamba_step(p, x_t, state, cfg):
+    """One-token decode; ``state`` is updated in place.  Returns ``(y,
+    state)``."""
+    y, new = mamba_apply(p, x_t, cfg, state=state)
+    state.conv.copy_(new.conv)
+    state.h.copy_(new.h)
+    return y, state
+
+
+def _mamba_init_state(cfg, B, device, max_len=0):
+    del max_len  # a streaming state does not grow with the context
+    return mamba_init_state(cfg, B, device)
+
+
+seq_op.register_op(seq_op.SequenceOp(
+    name="mamba",
+    specs=mamba_specs,
+    forward=_mamba_forward,
+    step=_mamba_step,
+    init_state=_mamba_init_state,
+    streaming=True,
+    spec_decodable=True,
+    prealloc_state=True,  # the reference's flag (its hybrid group scan
+    #   needs a uniform carry); the port's prefill returns new states
+))

@@ -17,9 +17,10 @@ validator reads either package's files:
   checks;
 * ``validate``  — CLI schema validator for CI
   (``python -m repro_torch.obs.validate``);
-* ``perf``      — ``torch.profiler`` capture and the bench-history
-  reader (the roofline, the history writer, ``perfcheck`` and the
-  analytic cost model are not ported yet).
+* ``perf``      — roofline utilization against the device's peaks,
+  ``torch.profiler`` capture and the bench history (writer and reader);
+* ``perfcheck`` — the stdlib comparison of two bench histories;
+* ``costs``     — the analytic per-op and whole-model cost model.
 
 Nothing here imports torch at import time.  ``Obs`` bundles one
 registry + one tracer, which is what components take

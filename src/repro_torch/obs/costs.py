@@ -2,8 +2,9 @@
 
 Twin of ``repro/obs/costs.py`` for the records the port registers: the
 HLA family (``linattn``, ``hla2``, ``ahla``, ``hla3``, ``hla3_paper``),
-softmax attention (``attn``) and gated linear attention (``gla``, whose
-record also carries the ``cost_model`` hook).  One question, answered without running
+softmax attention (``attn``), gated linear attention (``gla``, whose
+record also carries the ``cost_model`` hook), Mamba (``mamba``) and
+RWKV-6 (``rwkv6``).  One question, answered without running
 anything: *how many FLOPs and how many HBM bytes does operator X move per
 token* on each of its execution paths: ``train_fwd`` / ``train_bwd``
 (full-sequence chunkwise), ``train_step`` (both), ``prefill`` (same chunk
@@ -36,6 +37,12 @@ Derivation (the reference's):
   and for bytes a call reads the experts it is expected to touch, ``E (1 -
   (1 - K/E)^T)`` of the ``E`` for ``T`` tokens routed uniformly, each
   once.  Everything else is the reference's.
+* **Hybrid stacks** (``model_cost`` only), where the port departs from the
+  reference again: the reference counts ``op_for(cfg)``'s state math in
+  all ``n_layers`` (jamba: softmax attention in 72 layers, 63 of which
+  are Mamba).  Here each group position counts its own op's state math,
+  bytes and state, times the number of groups, and the MoE share applies
+  to the experts of the positions that have them.
 
 Cross-check: ``measured_op_flops`` runs the op's forward on the CPU (the
 kernels' plain versions) under ``torch.utils.flop_counter.FlopCounterMode``
@@ -143,6 +150,19 @@ def _fwd_attn(cfg, c, n):
     return H * (2 * n * d + 2 * n * dv)
 
 
+def _fwd_rwkv6(cfg, c, n):
+    d = cfg.d_model
+    dh = cfg.rwkv_head_dim
+    c = min(32, n)  # RWKV_CHUNK
+    return (d // dh) * (2 * c * (dh + dh) + 8 * dh * dh)
+
+
+def _fwd_mamba(cfg, c, n):
+    mc = cfg.mamba
+    d_in = mc.expand * cfg.d_model
+    return 6.0 * d_in * mc.d_state + 2.0 * mc.d_conv * d_in
+
+
 def _dec_linattn(cfg, L):
     H, d, dv = _dims(cfg)
     return H * (4 * d * dv + 2 * d)
@@ -177,16 +197,26 @@ def _dec_attn(cfg, L):
     return H * (2 * L * d + 2 * L * dv)
 
 
+def _dec_rwkv6(cfg, L):
+    d = cfg.d_model
+    dh = cfg.rwkv_head_dim
+    return (d // dh) * 8 * dh * dh
+
+
+def _dec_mamba(cfg, L):
+    return _fwd_mamba(cfg, 1, 1)
+
+
 _FWD_STATE_FLOPS: Dict[str, Callable] = {
     "linattn": _fwd_linattn, "hla2": _fwd_hla2, "ahla": _fwd_ahla,
     "hla3": _fwd_hla3, "hla3_paper": _fwd_hla3_paper, "gla": _fwd_gla,
-    "attn": _fwd_attn,
+    "attn": _fwd_attn, "rwkv6": _fwd_rwkv6, "mamba": _fwd_mamba,
 }
 
 _DEC_STATE_FLOPS: Dict[str, Callable] = {
     "linattn": _dec_linattn, "hla2": _dec_hla2, "ahla": _dec_ahla,
     "hla3": _dec_hla3, "hla3_paper": _dec_hla3_paper, "gla": _dec_gla,
-    "attn": _dec_attn,
+    "attn": _dec_attn, "rwkv6": _dec_rwkv6, "mamba": _dec_mamba,
 }
 
 
@@ -290,40 +320,47 @@ def model_cost(cfg, *, mode: str = "train_fwd",
     A measured tok/s is the FULL model's (embeddings, every layer's mixer +
     FFN, the unembed head), so utilization divides by the full model's
     FLOPs: ``2 * total-param`` projection FLOPs per token (every dense
-    weight is one MAC/token) plus ``n_layers x`` the op's state math.  An
-    MoE layer's experts count at ``top_k / n_experts`` of their weights for
-    FLOPs and at the expected share of experts a call of ``T`` tokens
-    touches for bytes (``moe_weight_shares``); the reference counts all of
-    them for both.
+    weight is one MAC/token) plus each layer's op's state math (a uniform
+    stack: ``n_layers x`` the op's; a hybrid one: each group position's
+    own op, times the groups).  An MoE layer's experts count at ``top_k /
+    n_experts`` of their weights for FLOPs and at the expected share of
+    experts a call of ``T`` tokens touches for bytes
+    (``moe_weight_shares``); the reference counts all of them for both.
     """
     from ..models import lm, seq_op
     from ..models.param import param_bytes, param_count
 
     op = seq_op.op_for(cfg)
-    opc = record_cost(op, cfg, mode=mode, seq_len=seq_len, batch=batch)
+    kw = dict(mode=mode, seq_len=seq_len, batch=batch)
+    opc = record_cost(op, cfg, **kw)
     specs = lm.lm_specs(cfg)
     n = int(seq_len if seq_len is not None else 512)
     decode = mode == "decode_step"
     scale = _SCALE[mode]
     tokens_per_call = max(1, batch * (1 if decode else n))
     n_params, p_bytes = param_count(specs), param_bytes(specs)
-    if cfg.moe is not None:
-        experts = {k: v for k, v in specs["layers"]["moe"].items()
-                   if k != "router"}
+    layout, units = lm.stack_layout(cfg)
+    stack = specs["groups" if cfg.group_size else "layers"]
+    experts = [{k: v for k, v in (stack if key is None else stack[key])
+                ["moe"].items() if k != "router"}
+               for key, _, use_moe in layout if use_moe]
+    if experts:
         flop_share, byte_share = moe_weight_shares(cfg, tokens_per_call)
-        n_exp = param_count(experts)
-        n_params -= n_exp * (1.0 - flop_share)
-        p_bytes -= param_bytes(experts) * (1.0 - byte_share)
-    # breakdown terms of `opc` are already mode-scaled
-    state_flops = opc.breakdown["state_flops"] * cfg.n_layers
-    state_traffic = opc.breakdown["state_traffic_bytes"] * cfg.n_layers
+        n_params -= sum(map(param_count, experts)) * (1.0 - flop_share)
+        p_bytes -= sum(map(param_bytes, experts)) * (1.0 - byte_share)
+    # each position's own op; breakdown terms are already mode-scaled
+    per_pos = [opc if pos_op is op else record_cost(pos_op, cfg, **kw)
+               for _, pos_op, _ in layout]
+    state_flops = units * sum(c.breakdown["state_flops"] for c in per_pos)
+    state_traffic = units * sum(c.breakdown["state_traffic_bytes"]
+                                for c in per_pos)
     flops = scale * 2.0 * n_params + state_flops
     act = scale * cfg.n_layers * _ACT_ROUNDTRIPS * cfg.d_model * 4.0
     bytes_pt = scale * p_bytes / tokens_per_call + act + state_traffic
     return OpCost(
         op=f"lm/{op.name}", mode=mode,
         flops_per_token=flops, bytes_per_token=bytes_pt,
-        state_bytes=opc.state_bytes * cfg.n_layers,
+        state_bytes=units * sum(c.state_bytes for c in per_pos),
         breakdown={
             "proj_flops": scale * 2.0 * n_params,
             "state_flops": state_flops,

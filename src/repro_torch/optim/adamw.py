@@ -2,10 +2,12 @@
 
 Twin of ``repro/optim/adamw.py``, as plain functions over the nested
 parameter dict (``torch.optim.AdamW`` decays and schedules otherwise).
-Master weights and moments in fp32.  Weight decay applies to every leaf
-with ``ndim >= 2``: with the stacked ``layers`` axis that includes the
-norm scales, ``out_scale`` and ``decay_a`` of the layers, as in the
-reference.
+Master weights and moments in fp32 by default; a bf16 parameter or
+moment (jamba's ``param_dtype`` / ``moment_dtype``) is updated in fp32
+and stored back rounded, as the reference does.  Weight decay applies to
+every leaf with ``ndim >= 2``: with the stacked ``layers`` axis that
+includes the norm scales, ``out_scale`` and ``decay_a`` of the layers, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -33,13 +35,17 @@ class OptConfig:
 
 class OptState(NamedTuple):
     step: int
-    mu: Any  # dict like params (fp32)
-    nu: Any  # dict like params (fp32)
+    mu: Any  # dict like params (moment_dtype)
+    nu: Any  # dict like params (moment_dtype)
 
 
-def init_opt_state(params) -> OptState:
+def init_opt_state(params, moment_dtype=torch.float32) -> OptState:
+    """Zero moments in ``moment_dtype`` (a torch dtype or its name)."""
+    if isinstance(moment_dtype, str):
+        moment_dtype = getattr(torch, moment_dtype)
+
     def z(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
 
     return OptState(step=0, mu=tree_map(z, params), nu=tree_map(z, params))
 
@@ -79,7 +85,10 @@ def adamw_update(params, grads, state: OptState, cfg: OptConfig):
     gradients.  A caller that needs the pre-step values copies them first.
     The elementwise operations and their order are the out-of-place
     formula's (``b1 * m + (1 - b1) * g``, ...), so fp32 results are
-    bit-identical to it."""
+    bit-identical to it.  A leaf stored in a narrower dtype than fp32 (a
+    bf16 parameter or moment) is computed in fp32 from its stored value
+    and copied back rounded, as the reference's ``(p32 - lr *
+    delta).astype(p.dtype)``: never an in-place op in bf16."""
     grads = tree_map(
         lambda g: g.to(torch.promote_types(g.dtype, torch.float32)), grads)
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
@@ -90,11 +99,26 @@ def adamw_update(params, grads, state: OptState, cfg: OptConfig):
     for (_, p), (_, m), (_, v), (_, g) in zip(
             leaf_paths(params), leaf_paths(state.mu), leaf_paths(state.nu),
             leaf_paths(grads)):
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_(((1 - b2) * g).mul_(g))
-        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        if cfg.weight_decay and p.dim() >= 2:  # no decay on 1-D leaves
-            delta.add_(cfg.weight_decay * p)
-        p.sub_(delta.mul_(lr))
+        ct = torch.promote_types(p.dtype, torch.float32)
+        if m.element_size() >= 4:
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_(((1 - b2) * g).mul_(g))
+            m_c, v_c = m, v
+        else:  # narrow moments: the new value in fp32, stored rounded
+            m_c = (b1 * m.to(g.dtype)).add_((1 - b1) * g)
+            v_c = (b2 * v.to(g.dtype)).add_(((1 - b2) * g).mul_(g))
+            m.copy_(m_c)
+            v.copy_(v_c)
+            m_c, v_c = m.to(ct), v.to(ct)  # the reference reads them back
+        delta = (m_c / bc1).div_((v_c / bc2).sqrt_().add_(cfg.eps))
+        if p.element_size() >= 4:
+            if cfg.weight_decay and p.dim() >= 2:  # no decay on 1-D leaves
+                delta.add_(cfg.weight_decay * p)
+            p.sub_(delta.mul_(lr))
+        else:
+            p32 = p.to(ct)
+            if cfg.weight_decay and p.dim() >= 2:
+                delta.add_(cfg.weight_decay * p32)
+            p.copy_(p32.sub_(delta.mul_(lr)))
     return params, OptState(step, state.mu, state.nu), {
         "lr": lr, "grad_norm": gnorm}

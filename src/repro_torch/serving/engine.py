@@ -197,6 +197,27 @@ def _to(states, device, **kw):
     return tree_map(lambda x: x.to(device, **kw), states)
 
 
+def check_servable(cfg, spec: Optional[SpecConfig] = None) -> None:
+    """Raise ``ValueError`` unless ``Engine`` can serve ``cfg`` (with
+    ``spec``): admissibility is the op record's capability.  A streaming
+    op's per-slot state batches continuously; a KV cache's one length is
+    shared by every row, and so is a hybrid stack's (its attention
+    position may be a KV cache), so the engine refuses both, as the
+    reference's does.  Callable before any parameter is allocated."""
+    op = seq_op.op_for(cfg)  # unknown mixers fail here, not at admission
+    if not op.streaming or cfg.group_size:
+        raise ValueError(
+            "Engine serves streaming-state ops "
+            f"{seq_op.streaming_op_names()}; op {op.name!r} "
+            f"(group_size={cfg.group_size}) decodes from a KV cache "
+            "whose pooled scalar length is shared across slots — "
+            "continuous batching needs per-slot lengths")
+    if spec is not None and not op.spec_decodable:
+        raise ValueError(
+            f"op {op.name!r} is not registered spec_decodable: its state "
+            "cannot be snapshot/rolled back for speculative verification")
+
+
 class Engine:
     """Slot-based continuous batching over a ``StatePool``.
 
@@ -215,20 +236,7 @@ class Engine:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') needs a CUDA device")
-        op = seq_op.op_for(cfg)  # unknown mixers fail here, not at admission
-        # admissibility is the record's capability: a streaming op's
-        # per-slot state batches continuously; a KV cache's one length is
-        # shared by every row
-        if not op.streaming:
-            raise ValueError(
-                "Engine serves streaming-state ops "
-                f"{seq_op.streaming_op_names()}; op {op.name!r} decodes "
-                "from a KV cache whose pooled scalar length is shared "
-                "across slots — continuous batching needs per-slot lengths")
-        if spec is not None and not op.spec_decodable:
-            raise ValueError(
-                f"op {op.name!r} is not registered spec_decodable: its state "
-                "cannot be snapshot/rolled back for speculative verification")
+        check_servable(cfg, spec)
         self.cfg = cfg
         self.device = device
         self.params = lm.cast_params(params, cfg)

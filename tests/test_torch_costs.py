@@ -16,7 +16,16 @@ reference's (``repro/obs/costs.py``).
   share of experts a call touches), a closed form; at reduced
   qwen3-moe-30b-a3b (8 experts, top 2) it lies within 2x of what
   ``FlopCounterMode`` counts in the whole model's forward, and the
-  reference's count, every expert on every token, does not.
+  reference's count, every expert on every token, does not;
+* ``mamba`` (hla-1b's width with a ``MambaConfig``) and ``rwkv6`` (hla-1b
+  and rwkv6-7b) equal the reference in every mode, ``op_cost`` and the
+  uniform stack's ``model_cost``, at bf16 activations (the port keeps
+  Mamba's conv state in the activation dtype, the reference in bf16);
+* a hybrid stack's ``model_cost`` (jamba, its own ``attn`` and ``hla2``)
+  is a closed form: the reference's projection term with the experts of
+  the MoE positions at their share, plus each position's own op's state
+  math, bytes and state (the reference's own ``op_cost`` of ``mamba`` and
+  of the mixer), times the groups.
 """
 
 import dataclasses
@@ -28,8 +37,10 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro.configs import get_config as ref_get_config
 from repro.models import seq_op as ref_seq_op
 from repro.obs import costs as ref_costs
+from repro.models.config import MambaConfig as RefMambaConfig
 from repro_torch.configs import get_config
 from repro_torch.models import lm, seq_op
+from repro_torch.models.config import MambaConfig
 from repro_torch.models.param import init_params, param_bytes, param_count
 from repro_torch.obs import costs
 from repro_torch.serving.cache import state_bytes_for
@@ -131,7 +142,7 @@ def test_unknown_mode_or_op_raises():
     cfg = get_config("hla-1b", reduced=True)
     with pytest.raises(ValueError, match="mode"):
         costs.op_cost("hla2", cfg, mode="inference")
-    op = dataclasses.replace(seq_op.get_op("hla2"), name="rwkv6")
+    op = dataclasses.replace(seq_op.get_op("hla2"), name="rwkv7")
     with pytest.raises(ValueError, match="no state-math formula"):
         costs.record_cost(op, cfg)
 
@@ -325,3 +336,89 @@ def test_moe_model_flops_within_2x_of_counted():
         ours.flops_per_token, counted)
     assert ref.flops_per_token / counted > 2.0, (ref.flops_per_token,
                                                  counted)
+
+
+def _ssm_cfgs(arch, mixer, reduced):
+    """Reference and port configs at bf16 activations, with the default
+    ``MambaConfig`` where the arch has none."""
+    ref_cfg = ref_get_config(arch, reduced=reduced).replace(
+        mixer=mixer, dtype="bfloat16")
+    cfg = get_config(arch, reduced=reduced).replace(mixer=mixer,
+                                                    dtype="bfloat16")
+    if cfg.mamba is None and mixer == "mamba":
+        ref_cfg = ref_cfg.replace(mamba=RefMambaConfig())
+        cfg = cfg.replace(mamba=MambaConfig())
+    return ref_cfg, cfg
+
+
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
+@pytest.mark.parametrize("arch, mixer", [("hla-1b", "mamba"),
+                                         ("hla-1b", "rwkv6"),
+                                         ("rwkv6-7b", "rwkv6")])
+def test_mamba_and_rwkv6_costs_match_reference(arch, mixer, reduced):
+    ref_cfg, cfg = _ssm_cfgs(arch, mixer, reduced)
+    for mode in costs.MODES:
+        for seq_len, batch in ((1, 1), (20, 1), (300, 4), (2048, 2)):
+            kw = dict(mode=mode, seq_len=seq_len, batch=batch)
+            _same(costs.op_cost(mixer, cfg, **kw),
+                  ref_costs.op_cost(mixer, ref_cfg, **kw))
+            _same(costs.model_cost(cfg, **kw),
+                  ref_costs.model_cost(ref_cfg, **kw))
+
+
+@pytest.mark.parametrize("mixer", [None, "hla2"], ids=["attn", "hla2"])
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
+def test_hybrid_model_cost_closed_form(reduced, mixer):
+    arch = "jamba-1.5-large-398b"
+    ref_cfg = ref_get_config(arch, reduced=reduced, mixer=mixer).replace(
+        dtype="bfloat16")
+    cfg = get_config(arch, reduced=reduced, mixer=mixer).replace(
+        dtype="bfloat16")
+    G = cfg.n_layers // cfg.group_size
+    mix = "attn" if cfg.mixer == "softmax" else cfg.mixer
+    ops = [mix if i == cfg.attn_index else "mamba"
+           for i in range(cfg.group_size)]
+    assert ops.count("mamba") == 7
+    groups = lm.lm_specs(cfg)["groups"]
+    moe_pos = [f"pos{i}" for i in range(cfg.group_size)
+               if i % cfg.moe.every == cfg.moe.every - 1]
+    assert moe_pos == ["pos1", "pos3", "pos5", "pos7"]
+    assert all(("moe" in groups[k]) == (k in moe_pos) for k in groups)
+    experts = [{k: v for k, v in groups[p]["moe"].items() if k != "router"}
+               for p in moe_pos]
+    n_exp = sum(map(param_count, experts))
+    b_exp = sum(map(param_bytes, experts))
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    assert n_exp == G * len(moe_pos) * E * 3 * cfg.d_model * cfg.moe.d_ff
+    for mode in costs.MODES:
+        scale = costs._SCALE[mode]
+        for seq_len, batch in ((1, 1), (64, 1), (300, 4), (2048, 2)):
+            kw = dict(mode=mode, seq_len=seq_len, batch=batch)
+            got = costs.model_cost(cfg, **kw)
+            want = ref_costs.model_cost(ref_cfg, **kw)
+            per = [ref_costs.op_cost(o, ref_cfg, **kw) for o in ops]
+            T = batch * (1 if mode == "decode_step" else seq_len)
+            touched = E * (1 - (1 - K / E) ** T)
+            proj = want.breakdown["proj_flops"] \
+                - scale * 2 * n_exp * (1 - K / E)
+            state = G * sum(c.breakdown["state_flops"] for c in per)
+            traffic = G * sum(c.breakdown["state_traffic_bytes"]
+                              for c in per)
+            weights = want.breakdown["weight_bytes"] \
+                - scale * b_exp * (1 - touched / E) / T
+            assert got.breakdown["proj_flops"] == pytest.approx(proj,
+                                                                rel=REL)
+            assert got.breakdown["state_flops"] == pytest.approx(state,
+                                                                 rel=REL)
+            assert got.flops_per_token == pytest.approx(proj + state,
+                                                        rel=REL)
+            assert got.bytes_per_token == pytest.approx(
+                weights + want.breakdown["act_bytes"] + traffic, rel=REL)
+            assert got.state_bytes == G * sum(c.state_bytes for c in per)
+            assert got.op == want.op
+    # the reference counts softmax attention's state math in all 72 layers
+    if mixer is None and not reduced:
+        full = dict(mode="train_fwd", seq_len=2048, batch=1)
+        assert ref_costs.model_cost(ref_cfg, **full).breakdown[
+            "state_flops"] == 72 * ref_costs.op_cost(
+                "attn", ref_cfg, **full).breakdown["state_flops"]

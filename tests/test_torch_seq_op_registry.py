@@ -2,8 +2,9 @@
 twin of the HLA-family parts of ``tests/test_seq_op_registry.py``:
 registration errors and hints, the capability flags against the
 reference's records, the state trees against the reference's, and for
-every record that forward-then-step equals forward and that forward resumes
-from a carry.  Sublayer parameters are the reference's (``from_jax_params``).
+every record (the HLA family, ``mamba`` and the self-contained ``rwkv6``)
+that forward-then-step equals forward and that forward resumes from a
+carry.  Sublayer parameters are the reference's (``from_jax_params``).
 
 Tolerance: fp32, 1e-4 (the reference test's), and the same against the
 reference's records.
@@ -17,13 +18,17 @@ import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.models import seq_op as ref_seq_op
+from repro.models.config import MambaConfig as RefMambaConfig
 from repro.models.param import init_params as ref_init_params
 from repro_torch.configs import get_config
 from repro_torch.models import seq_op
+from repro_torch.models.config import MambaConfig
 from repro_torch.models.param import from_jax_params
 from repro_torch.models.state_tree import leaves
 
 FAMILY = ("ahla", "hla2", "hla3", "hla3_paper", "linattn")
+# the registry's cases: the HLA family, Mamba and the self-contained RWKV-6
+OPS = FAMILY + ("mamba", "rwkv6")
 TOL = 1e-4
 FLAGS = ("streaming", "has_fused_kernels", "spec_decodable",
          "needs_positions", "self_contained", "prealloc_state", "param_key")
@@ -32,6 +37,9 @@ FLAGS = ("streaming", "has_fused_kernels", "spec_decodable",
 def _op(name):
     ref_cfg = ref_get_config("hla-1b", reduced=True).replace(mixer=name)
     cfg = get_config("hla-1b", reduced=True, mixer=name)
+    if name == "mamba":  # as tests/test_seq_op_registry.py's _cfg_for
+        ref_cfg = ref_cfg.replace(mamba=RefMambaConfig(d_state=8))
+        cfg = cfg.replace(mamba=MambaConfig(d_state=8))
     ref_op, op = ref_seq_op.get_op(name), seq_op.get_op(name)
     ref_p = ref_init_params(ref_op.specs(ref_cfg), jax.random.key(0))
     p = from_jax_params(jax.device_get(ref_p), op.specs(cfg), device="cpu")
@@ -50,9 +58,11 @@ def _close(got, want, tol=TOL):
 
 def test_hla_family_registered():
     assert seq_op.registered_op_names() == ("ahla", "attn", "gla") + \
-        FAMILY[1:]
-    assert seq_op.streaming_op_names() == ("ahla", "gla") + FAMILY[1:]
-    assert set(FAMILY) <= set(ref_seq_op.registered_op_names())
+        FAMILY[1:] + ("mamba", "rwkv6")
+    assert seq_op.streaming_op_names() == ("ahla", "gla") + FAMILY[1:] + \
+        ("mamba", "rwkv6")
+    assert set(seq_op.registered_op_names()) <= set(
+        ref_seq_op.registered_op_names())
 
 
 def test_duplicate_registration_raises():
@@ -100,7 +110,7 @@ def test_streaming_registration_requires_step():
         assert seq_op.get_op(name).step is not None
 
 
-@pytest.mark.parametrize("name", FAMILY)
+@pytest.mark.parametrize("name", OPS)
 def test_flags_and_state_tree_match_reference(name):
     """The capability flags equal the reference record's, and the state
     tree has the reference's structure, leaf shapes and dtypes (nested for
@@ -116,7 +126,7 @@ def test_flags_and_state_tree_match_reference(name):
     assert all(x.dtype == torch.float32 for x in leaves(st))
 
 
-@pytest.mark.parametrize("name", FAMILY)
+@pytest.mark.parametrize("name", OPS)
 def test_forward_then_step_matches_forward(name):
     """prefix forward + per-token steps (in place) == one forward over the
     whole sequence, and == the reference's record over it."""
@@ -136,7 +146,7 @@ def test_forward_then_step_matches_forward(name):
     _close(torch.cat(pieces, 1), y_full)
 
 
-@pytest.mark.parametrize("name", FAMILY)
+@pytest.mark.parametrize("name", OPS)
 def test_forward_resumes_from_carry(name):
     """forward(state=mid_carry) == the tail of one full forward, states
     included, and the carry is left as it was."""
