@@ -26,7 +26,10 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    48 rows x 2048 and 300 tokens; and at phase 14's (jamba-1.5-large-398b's
    64 heads of 128, 8 KV heads broadcast): HLA2's forward at 128 rows x
    300 tokens, its step at 128 rows, its backward and forward with
-   checkpoints at 64 rows x 1024 tokens;
+   checkpoints at 64 rows x 1024 tokens; and at phase 15's (whisper-small's
+   12 heads of d = dv = 64): the forwards at 48 rows x 224 tokens and x 4
+   (one partial chunk, no carry), the steps at 48 rows, both backwards
+   and forwards with checkpoints at 96 rows x 448 tokens;
 3. check the port against its plain path on a small model (card vs CPU):
    prefill + decode logits, and the training loss and every parameter's
    gradient, with either mixer; and at full width that prefill(L) + one
@@ -95,8 +98,11 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    decode and the train step at phases 4 and 6's shapes and the
    ``roofline_utilization`` of their measured tok/s against
    ``device_peak``; (c) phase 6's peak memory with the in-place AdamW;
-   (d) ``examples/torch_quickstart.py`` and
-   ``examples/torch_long_context_decode.py`` in a subprocess, short;
+   (d) ``examples/torch_quickstart.py``,
+   ``examples/torch_long_context_decode.py``,
+   ``examples/torch_hla_vs_baselines.py`` (five accuracy lines) and
+   ``examples/torch_train_hla_100m.py`` (20 steps, one checkpoint) in a
+   subprocess each, short;
 11. (runs after phase 10) the rest of the HLA operator family, plain torch
    (``hla3``, ``hla3_paper``, ``linattn``, and ``impl="scan"`` for HLA2 and
    AHLA), which launches none of the six kernels: (a) at head_dim 128,
@@ -156,7 +162,8 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    falls, 64 + 32 launches a step with an HLA mixer; (e)
    qwen3-moe-30b-a3b (32 heads of 128, 4 KV heads, 128 experts top 8) cut
    to ``QWEN3_LAYERS`` layers with ``hla2``: (b)'s identity, then (a)'s
-   requests, 12 + 12 launches; (f) granite's four entry points' contracts
+   requests, one chunk launch a layer an admission and one step launch a
+   layer a decode step; (f) granite's four entry points' contracts
    with ``hla2`` (1 / 1 / 1 or 2 / 0 host transfers); (g) hla-1b with
    ``gla`` (plain torch): phase 4's requests and one AdamW step at 2 x
    2048, none of the six kernels launched;
@@ -181,10 +188,29 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    parameters, moments and accumulator, ``remat="full"`` on the group: 3
    AdamW steps at 2 x 1024 with lr ``JAMBA_LR``, the loss falls, 2 + 1
    launches a step;
+15. (runs after phase 14) whisper-small at full size (12 encoder and 12
+   decoder layers, d_model 768, 12 heads of 64, vocabulary 51,865, 1500
+   frames of the stub frontend, 0.255 B parameters, seeded random
+   weights), with its own softmax decoder and with ``hla2`` and ``ahla``
+   in the decoder's self-attention: (b) fp32, 2 rows, a
+   ``whisper_apply`` prefill of L tokens then one decode step equals a
+   prefill of L + 1 at L = 4 and 224 (softmax within ``TOL_WHISPER_CACHE``
+   with its bf16 KV cache and within ``TOL_FP32`` with fp32 caches; the HLA
+   mixers within ``TOL_FP32``); (c) bf16, 4 rows of 1500 frames, a 4- and
+   a 224-token prompt, 64 greedy tokens: time to the first token
+   (encoder + prefill), ms a decode step, tok/s, peak memory; exactly 12
+   chunk launches a prefill and 12 step launches a decode step with an
+   HLA mixer (none with softmax), no plain version; one ``hla2`` stream
+   through ``make_prefill_step`` + ``make_serve_step`` equals
+   ``whisper_apply``'s token for token; (d) 3 AdamW steps at 8 x 448
+   decoder tokens + 8 x 1500 frames with the config's ``remat="full"``,
+   bf16 activations: the loss falls, 24 + 12 launches a step with an HLA
+   mixer;
 7. time each kernel and its plain version at its path's shapes (the step
    kernels also at 16 rows, one slot; the chunk forwards also at the
    verify shape, ``[verify]``; all six also at phase 13's d = 64 shapes,
-   ``[d=64]``; the HLA2 three at phase 14's jamba shapes, ``[jamba]``).
+   ``[d=64]``; the HLA2 three at phase 14's jamba shapes, ``[jamba]``;
+   all six at phase 15's whisper shapes, ``[whisper]``).
 
 The second-to-last line is the ``kernels`` JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -1742,8 +1768,9 @@ def train(device, cfg, steps=5, batch=2, seq=2048, lr=1e-5):
     """AdamW steps of ``cfg`` (its activations' dtype and remat, its
     ``param_dtype`` and ``moment_dtype``: fp32 but for jamba) on one
     repeated synthetic batch (with ``cfg.vis_tokens`` seeded patch
-    embeddings x 0.1 before the tokens).  Returns the launch counts of the
-    run and its summary numbers."""
+    embeddings x 0.1 before the tokens; for whisper ``cfg.enc_frames``
+    seeded frame embeddings x 0.1 for the encoder).  Returns the launch
+    counts of the run and its summary numbers."""
     import numpy as np
     import torch
 
@@ -1763,11 +1790,13 @@ def train(device, cfg, steps=5, batch=2, seq=2048, lr=1e-5):
     step_fn = make_train_step(cfg, opt_cfg)
     host = SyntheticStream(DataConfig(cfg.vocab, seq, batch, seed=0)).batch(0)
     data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-    if cfg.vis_tokens:
-        gen = torch.Generator(device=device).manual_seed(4)
-        data["vis_embed"] = torch.randn(
-            (batch, cfg.vis_tokens, cfg.d_model), generator=gen,
-            device=device) * 0.1
+    extra = {"vis_embed": cfg.vis_tokens, "frames": cfg.enc_frames
+             if cfg.enc_layers else 0}
+    for key, n in extra.items():
+        if n:
+            gen = torch.Generator(device=device).manual_seed(4)
+            data[key] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                                    device=device) * 0.1
     _sync(device)
     cuda = device.type == "cuda"
     if cuda:
@@ -1787,7 +1816,7 @@ def train(device, cfg, steps=5, batch=2, seq=2048, lr=1e-5):
     _, launches = _count_train(device, cfg, run)
     peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
     p50 = float(np.percentile(step_s, 50))
-    vis = f" (+ {cfg.vis_tokens} vis_embed)" if cfg.vis_tokens else ""
+    vis = "".join(f" (+ {n} {key})" for key, n in extra.items() if n)
     aux = f" | aux {' '.join(f'{x:.5f}' for x in auxes)}" if cfg.moe else ""
     log(f"trained {cfg.name} ({cfg.mixer}; {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.dtype} activations, {cfg.param_dtype} "
@@ -2087,11 +2116,19 @@ def restart_phase(device, cfg=None, seq=2048, steps=3):
 # --------------------------------------------------------------------------
 
 
+# (script, arguments, environment, a line each run must print, how many
+# times); "{tmp}" is a temporary directory the phase removes
 EXAMPLES = (
     ("examples/torch_quickstart.py", ["--steps", "30", "--batch", "8",
-                                      "--seq", "64"], "loss: "),
-    ("examples/torch_long_context_decode.py", ["--ctx", "512"],
-     "decode state never grew"),
+                                      "--seq", "64"], {}, "loss: ", 1),
+    ("examples/torch_long_context_decode.py", ["--ctx", "512"], {},
+     "decode state never grew", 1),
+    ("examples/torch_hla_vs_baselines.py", ["--steps", "40"], {},
+     "recall accuracy: ", 5),
+    ("examples/torch_train_hla_100m.py",
+     ["--ckpt-dir", "{tmp}/ck", "--ckpt-every", "20", "--metrics",
+      "{tmp}/metrics.jsonl"], {"STEPS": "20"},
+     "[train] finished at step 19 |", 1),
 )
 
 
@@ -2152,19 +2189,30 @@ def utilization_phase(device, served, trained):
 
 
 def examples_phase():
-    """(d) both examples on the card, each in its own interpreter."""
+    """(d) the four examples on the card, each in its own interpreter; the
+    100M example must leave one checkpoint in its directory."""
     import os
+    import tempfile
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for path, args, want in EXAMPLES:
+    for path, args, extra, want, count in EXAMPLES:
         t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, str(ROOT / path), *args],
-                             cwd=ROOT, env=env, capture_output=True,
-                             text=True, timeout=300)
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = [a.replace("{tmp}", tmp) for a in args]
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **extra)
+            out = subprocess.run([sys.executable, str(ROOT / path), *argv],
+                                 cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=300)
+            ckpts = sorted(os.listdir(f"{tmp}/ck")) \
+                if os.path.isdir(f"{tmp}/ck") else None
         lines = out.stdout.strip().splitlines()
-        log(f"(d) {path} {' '.join(args)}: exit {out.returncode} in "
-            f"{time.perf_counter() - t0:.1f}s; {' | '.join(lines[-4:])}")
-        if out.returncode != 0 or not any(want in x for x in lines):
+        env_text = "".join(f"{k}={v} " for k, v in extra.items())
+        log(f"(d) {env_text}{path} {' '.join(args)}: exit {out.returncode} "
+            f"in {time.perf_counter() - t0:.1f}s; "
+            f"{' | '.join(lines[-max(4, count):])}"
+            + ("" if ckpts is None else f"; checkpoints {ckpts}"))
+        if out.returncode != 0 or sum(want in x for x in lines) != count \
+                or ckpts != (["step_00000019"] if "--ckpt-dir" in args
+                             else None):
             raise AssertionError(f"{path} failed:\n{out.stdout}\n"
                                  f"{out.stderr}")
 
@@ -2765,10 +2813,10 @@ def public_phase(device, configs):
 
 # the MoE configs phase 13 runs, each at full width
 MOE = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
-# qwen3-moe-30b-a3b's depth on one 80 GB card: 12 of its 48 layers hold
-# 8.10 B parameters (32.4 GB fp32 + 16.2 GB for the engine's bf16 copy);
-# all 48 (30.5 B, 122 GB fp32) need several cards
-QWEN3_LAYERS = 12
+# qwen3-moe-30b-a3b's depth: all 48 layers (30.5 B, 122 GB fp32) need
+# several cards; 12 (8.10 B) fit one 80 GB card, and 6 keep the whole
+# script near its time budget once phase 15 runs (its widths stay whole)
+QWEN3_LAYERS = 6
 
 
 def gla_phase(device, cfg):
@@ -3097,6 +3145,232 @@ def hybrid_phase(device, configs):
                 rwkv_trained=rwkv_trained, jamba_identity=e_jamba,
                 routing=agree, decoded=decoded, jamba_trained=jamba_trained,
                 jamba_train_launches=jamba_launches)
+
+
+# --------------------------------------------------------------------------
+# phase 15: whisper-small, encoder and decoder (after phase 14)
+# --------------------------------------------------------------------------
+
+
+# the decoder's self-attention phase 15 runs: its own softmax, then the two
+# kernel mixers in its place
+WHISPER_MIXERS = ("softmax", "hla2", "ahla")
+# decoder prompt lengths: one partial 64-token chunk, and 3.5 chunks
+WHISPER_PROMPTS = (4, 224)
+WHISPER_GEN = 64  # greedy tokens a served row: the prefill's, then steps
+WHISPER_ROWS = 4  # served rows, each with its own 1500 frames
+# training: rows x decoder tokens (448 is whisper's max_target_positions,
+# its own decoder context in the public openai/whisper-small config)
+WHISPER_TRAIN = (8, 448)
+# softmax's identity with its bf16 KV cache: the prompt's K/V come from
+# GEMMs of 2L and 2(L + 1) rows and some elements round to neighbouring
+# bf16 values; at L = 4 (5 keys a row) that moved the logits by 3.06e-4
+# (H100, 700 W), past phase 12's TOL_CACHE (300 keys).  One bf16 rounding
+# bounds it; the same identity with fp32 caches holds TOL_FP32
+TOL_WHISPER_CACHE = TOL_BF16
+# each HLA mixer's (prefill, decode-step) kernel
+WHISPER_SERVE = {"hla2": ("hla2_chunk_fwd", "hla2_step"),
+                 "ahla": ("ahla_chunk_fwd", "ahla_step")}
+
+
+def _frames(cfg, rows, device, seed=6):
+    """The stub frontend's input: seeded ``(rows, enc_frames, d_model)``
+    frame embeddings x 0.1."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((rows, cfg.enc_frames, cfg.d_model), generator=gen,
+                       device=device) * 0.1
+
+
+def whisper_identity(params, cfg, device, L, rows=2, tol=TOL_FP32,
+                     note=""):
+    """(b) fp32: ``whisper_apply(mode="prefill")`` over ``L`` tokens, then
+    one ``mode="decode"`` step, equals the last logits of a prefill over
+    ``L + 1``, within ``tol`` (``note`` names the run in the log)."""
+    import torch
+
+    from repro_torch.models import whisper
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    tok = torch.randint(2, cfg.vocab, (rows, L + 1), generator=gen,
+                        device=device)
+    fr = _frames(cfg, rows, device)
+    with torch.no_grad():
+        _, st, _ = whisper.whisper_apply(params, tok[:, :L], fr, cfg,
+                                         mode="prefill")
+        step, _, _ = whisper.whisper_apply(
+            params, tok[:, L:], None, cfg, states=st,
+            positions=torch.full((rows, 1), L, device=device),
+            mode="decode")
+        full, _, _ = whisper.whisper_apply(params, tok, fr, cfg,
+                                           mode="prefill")
+    step, full = step[:, -1], full[:, -1]
+    if not bool(step.isfinite().all()):
+        raise AssertionError("non-finite decode logits")
+    e = rel_err(step, full)
+    log(f"(b) {cfg.name} ({cfg.mixer}{note}) fp32, {rows} rows: "
+        f"prefill({L}) + step vs prefill({L + 1}) logits rel {e:.2e} "
+        f"(tol {tol:.0e}), "
+        f"argmax {step.argmax(-1).tolist()} vs {full.argmax(-1).tolist()}")
+    if not e <= tol:
+        raise AssertionError("whisper prefill + step != longer prefill")
+    return e
+
+
+def whisper_serve(params, cfg, device, prompt, rows=WHISPER_ROWS,
+                  gen=WHISPER_GEN):
+    """(c) bf16 (``params`` cast): ``rows`` rows of ``enc_frames`` frames
+    and a ``prompt``-token decoder prompt through ``whisper_apply`` (the
+    encoder and the prefill: the time to the first token), then ``gen -
+    1`` greedy decode steps.  With an HLA mixer exactly 12 chunk-forward
+    launches per prefill and 12 step launches per decode step, with
+    ``softmax`` none of the six; no plain version on the card.  Returns
+    the summary numbers and the tokens."""
+    import torch
+
+    from repro_torch.models import whisper
+
+    g = torch.Generator(device=device).manual_seed(8)
+    tok = torch.randint(2, cfg.vocab, (rows, prompt), generator=g,
+                        device=device)
+    fr = _frames(cfg, rows, device)
+    want_pre = want_step = {}
+    if cfg.mixer in WHISPER_SERVE:
+        chunk, step = WHISPER_SERVE[cfg.mixer]
+        want_pre, want_step = {chunk: cfg.n_layers}, {step: cfg.n_layers}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        (logits, st, _), pre_l, ttft = _run_counted(
+            device, lambda: whisper.whisper_apply(params, tok, fr, cfg,
+                                                  mode="prefill"))
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        out, step_s, step_l = [nxt], [], []
+        for t in range(gen - 1):
+            pos = torch.full((rows, 1), prompt + t, device=device)
+            (logits, _, _), l_t, s_t = _run_counted(
+                device, lambda: whisper.whisper_apply(
+                    params, nxt, None, cfg, states=st, positions=pos,
+                    mode="decode"))
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(nxt)
+            step_s.append(s_t)
+            step_l.append({k: v for k, v in l_t.items() if v})
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 \
+        if device.type == "cuda" else 0.0
+    pre_l = {k: v for k, v in pre_l.items() if v}
+    ms = 1e3 * statistics.median(step_s)
+    tok_s = rows * len(step_s) / sum(step_s)
+    log(f"(c) {cfg.name} ({cfg.mixer}) bf16, {rows} rows x "
+        f"{cfg.enc_frames} frames, prompt {prompt}, {gen} greedy tokens: "
+        f"time to first token (encoder + prefill) {1e3 * ttft:.1f} ms "
+        f"(launches {pre_l}), decode p50 {ms:.2f} ms a step, {tok_s:.1f} "
+        f"tok/s, launches a step {step_l[0]} | peak memory {peak:.2f} GiB")
+    if device.type == "cuda" and (pre_l != want_pre or any(
+            x != want_step for x in step_l)):
+        raise AssertionError(f"launches {pre_l} / {step_l}, want "
+                             f"{want_pre} / {want_step}")
+    if not bool(logits.isfinite().all()):
+        raise AssertionError("non-finite decode logits")
+    launches = {k: pre_l.get(k, 0) + sum(x.get(k, 0) for x in step_l)
+                for k in set(pre_l) | set(step_l[0])}
+    return dict(ttft_ms=1e3 * ttft, step_ms=ms, tok_s=tok_s, peak_gib=peak,
+                launches=launches, tokens=torch.cat(out, 1), inputs=(tok, fr))
+
+
+def whisper_steps_stream(params, cfg, device, inputs, gen=WHISPER_GEN):
+    """(c) one greedy stream through ``make_prefill_step`` and
+    ``make_serve_step`` on ``whisper_serve``'s inputs.  Returns its
+    tokens."""
+    import torch
+
+    from repro_torch.distributed.steps import (make_prefill_step,
+                                               make_serve_step)
+
+    tok, fr = inputs
+    prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
+    rows, prompt = tok.shape
+    with torch.no_grad():
+        logits, st = prefill(params, {"tokens": tok, "frames": fr})
+        nxt = logits.argmax(-1, keepdim=True)
+        out = [nxt]
+        for t in range(gen - 1):
+            pos = torch.full((rows, 1), prompt + t, device=device)
+            logits, st = serve(params, {"tokens": nxt, "positions": pos}, st)
+            nxt = logits.argmax(-1, keepdim=True)
+            out.append(nxt)
+    return torch.cat(out, 1)
+
+
+def whisper_phase(device, cfg, prompts=WHISPER_PROMPTS, train_shape=None):
+    """Phase 15 on ``cfg`` (full whisper-small on the card; ``reduced()``
+    rehearses on the CPU), with each decoder of ``WHISPER_MIXERS``: (b) the
+    fp32 identity at each prompt length (softmax with its bf16 KV cache,
+    within ``TOL_WHISPER_CACHE``, and with fp32 caches within
+    ``TOL_FP32``); (c)
+    bf16 serving at each prompt length, and for ``hla2`` the step
+    factories' stream against ``whisper_apply``'s; (d) 3 AdamW steps at
+    ``train_shape`` (default ``WHISPER_TRAIN``) with the config's remat.
+    Returns the summary numbers."""
+    import torch
+
+    from repro_torch.distributed.steps import model_specs
+    from repro_torch.models import lm, whisper
+    from repro_torch.models.param import init_params, param_count
+
+    t0 = time.perf_counter()
+    batch, seq = train_shape or WHISPER_TRAIN
+    served, trained, train_launches, ident = {}, {}, {}, {}
+    for mixer in WHISPER_MIXERS:
+        mcfg = cfg.replace(mixer=mixer)
+        _free(device)
+        params = init_params(whisper.whisper_specs(mcfg), 0, device)
+        log(f"{mcfg.name} ({mixer}): {mcfg.enc_layers} + {mcfg.n_layers} "
+            f"layers, d_model {mcfg.d_model}, {mcfg.n_heads} heads of "
+            f"{mcfg.head_dim}, {mcfg.enc_frames} frames, "
+            f"{param_count(whisper.whisper_specs(mcfg)) / 1e9:.4f} B "
+            "parameters")
+        f32 = mcfg.replace(dtype="float32")
+        for L in prompts:
+            if mixer == "softmax":
+                ident[(mixer, L)] = whisper_identity(
+                    params, f32, device, L, tol=TOL_WHISPER_CACHE,
+                    note=", bf16 KV cache")
+                with _fp32_kv_cache():
+                    ident[(mixer + "_fp32_cache", L)] = whisper_identity(
+                        params, f32, device, L, note=", fp32 KV cache")
+            else:
+                ident[(mixer, L)] = whisper_identity(params, f32, device, L)
+        bf = mcfg.replace(dtype="bfloat16")
+        cast = lm.cast_params(params, bf)
+        for L in prompts:
+            served[(mixer, L)] = whisper_serve(cast, bf, device, L)
+            if mixer == "hla2" and L == prompts[0]:
+                got = whisper_steps_stream(cast, bf, device,
+                                           served[(mixer, L)]["inputs"])
+                same = torch.equal(got, served[(mixer, L)]["tokens"])
+                log(f"(c) {bf.name} (hla2) make_prefill_step + "
+                    f"make_serve_step, prompt {L}: tokens equal "
+                    f"whisper_apply's: {same}")
+                if not same:
+                    raise AssertionError("the step factories' stream parts "
+                                         "from whisper_apply's")
+            _free(device)
+        del params, cast
+        _free(device)
+        train_launches[mixer], trained[mixer] = train(
+            device, mcfg, steps=3, batch=batch, seq=seq)
+    serve_launches = {}
+    for summary in served.values():
+        for k, v in summary.pop("launches").items():
+            serve_launches[k] = serve_launches.get(k, 0) + v
+        summary.pop("tokens")
+        summary.pop("inputs")
+    log(f"phase 15 took {time.perf_counter() - t0:.1f}s; serving launches "
+        f"{serve_launches}, training launches {train_launches}")
+    return dict(identity=ident, served=served, trained=trained,
+                serve_launches=serve_launches, train_launches=train_launches)
 
 
 # --------------------------------------------------------------------------
@@ -3563,6 +3837,29 @@ def time_jamba(device, jamba_abs, hybrid):
     return rows
 
 
+def time_whisper(device, whisper_abs, phase):
+    """The six kernels at whisper-small's heads (12 of d = dv = 64) and
+    phase 15's rows: the forwards at a 224-token prefill's 48 rows (4 rows
+    x 12 heads), the steps at a decode step's 48, the forwards with
+    checkpoints and the backwards at (d)'s 96 rows x 448.  ``whisper_abs``
+    holds phase 2's errors at these shapes, ``phase`` phase 15's summary
+    (its launches).  Each row's name carries ``[whisper]``."""
+    served, trained = phase["serve_launches"], phase["train_launches"]
+    n = max(WHISPER_PROMPTS)
+    rows = time_kernels(device, whisper_abs["chunk"], whisper_abs["step"],
+                        served, rows_chunk=48, n=n, rows_step=48, d=64)
+    rows += time_train_kernels(device, "hla2", *whisper_abs["bwd"],
+                               trained["hla2"], rows=96, n=448, d=64)
+    rows += time_ahla_kernels(device, whisper_abs["ahla_chunk"],
+                              whisper_abs["ahla_step"], served, rows_chunk=48,
+                              n=n, rows_step=48, d=64)
+    rows += time_train_kernels(device, "ahla", *whisper_abs["ahla_bwd"],
+                               trained["ahla"], rows=96, n=448, d=64)
+    for r in rows:
+        r["name"] += "[whisper]"
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3662,6 +3959,16 @@ def main() -> int:
     jamba_abs = dict(chunk=check_chunk(device, rows=128, ns=(300,)),
                      step=check_step(device, rows=128),
                      bwd=check_chunk_bwd(device, rows=64, ns=(1024,)))
+    # phase 15's rows at whisper-small's 12 heads of d = dv = 64: a 4-row
+    # prefill's 48 at 224 tokens and at 4 (one partial chunk, no carry), a
+    # decode step's 48, (d)'s training 8 x 12 = 96 at 448 tokens
+    whisper_abs = dict(
+        chunk=check_chunk(device, rows=48, d=64, ns=(224, 4)),
+        ahla_chunk=check_ahla_chunk(device, rows=48, d=64, ns=(224, 4)),
+        step=check_step(device, rows=48, d=64),
+        ahla_step=check_ahla_step(device, rows=48, d=64),
+        bwd=check_chunk_bwd(device, rows=96, d=64, ns=(448,)),
+        ahla_bwd=check_ahla_chunk_bwd(device, rows=96, d=64, ns=(448,)))
     torch.cuda.synchronize()
 
     check_small_model(device)
@@ -3693,6 +4000,7 @@ def main() -> int:
     public_phase(device, {a: get_config(a) for a in PUBLIC})
     moe = moe_phase(device, {a: get_config(a) for a in MOE + ("hla-1b",)})
     hybrid = hybrid_phase(device, {a: get_config(a) for a in HYBRID})
+    whisper = whisper_phase(device, get_config("whisper-small"))
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels.append(time_verify(device, "hla2", verify_abs,
                                cfg.n_layers * spec["ngram"]["rounds"]))
@@ -3706,6 +4014,7 @@ def main() -> int:
                                   ahla_train_launches)
     kernels += time_d64(device, d64, moe)
     kernels += time_jamba(device, jamba_abs, hybrid)
+    kernels += time_whisper(device, whisper_abs, whisper)
     log(f"all phases passed in {time.perf_counter() - T0:.0f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

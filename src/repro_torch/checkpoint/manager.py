@@ -14,8 +14,13 @@ opt_state)`` tuple gives ``0/<param path>``, ``1/step``, ``1/mu/...`` and
 ints or None.  A Python int is saved as a 0-d int32 array, the layout of
 the reference's ``OptState.step``, and comes back as an int wherever the
 template holds an int; a tensor comes back as a tensor on the template
-leaf's device.  A leaf whose dtype numpy lacks (bfloat16) raises
-``CheckpointError`` naming it: it is never cast.
+leaf's device.  A bfloat16 leaf, whose dtype numpy lacks, is written as
+the reference writes it (its ``ml_dtypes`` array under ``np.save``): the
+raw 2-byte values in a ``<V2`` ``.npy``, ``"dtype": "bfloat16"`` in the
+manifest, the crc32 over those bytes; its bits travel through
+``torch.int16``, so nothing is cast, and a restore views them back as
+``torch.bfloat16`` bit for bit.  Another dtype numpy lacks raises
+``CheckpointError`` naming the leaf.
 
 Failure domains, as in the reference:
 
@@ -46,8 +51,13 @@ from ..obs import Obs
 
 class CheckpointError(RuntimeError):
     """A checkpoint operation failed: an async save raised (surfaced on
-    the next ``wait()``/``save()``), a leaf has no numpy dtype, or a
-    restore hit a checksum mismatch."""
+    the next ``wait()``/``save()``), a leaf's dtype has no file form, or
+    a restore hit a checksum mismatch."""
+
+
+#: a bfloat16 leaf on the host: its raw 2-byte values (the ``.npy`` form
+#: of the reference's ``ml_dtypes.bfloat16`` arrays)
+BF16_BITS = np.dtype("V2")
 
 
 def _flatten(tree, prefix=""):
@@ -86,6 +96,9 @@ def _like(template, arr):
     if arr is None:
         return None
     if isinstance(template, torch.Tensor):
+        if arr.dtype == BF16_BITS:
+            return torch.from_numpy(arr.view(np.int16)).view(
+                torch.bfloat16).to(template.device)
         return torch.from_numpy(arr).to(template.device)
     if isinstance(template, int) and not isinstance(template, bool):
         return int(arr)
@@ -97,12 +110,16 @@ def _to_host(name: str, leaf):
     if leaf is None:
         return None
     if isinstance(leaf, torch.Tensor):
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(BF16_BITS)
         try:
-            return leaf.detach().to("cpu", copy=True).numpy()
-        except TypeError as e:  # bfloat16 and other dtypes numpy lacks
+            return host.numpy()
+        except TypeError as e:  # other dtypes numpy lacks
             raise CheckpointError(
                 f"leaf {name!r} has dtype {leaf.dtype}, which numpy cannot "
-                "hold; checkpoints store fp32 (and integer) leaves only"
+                "hold; checkpoints store floating (bf16 included) and "
+                "integer leaves only"
             ) from e
     if isinstance(leaf, int) and not isinstance(leaf, bool):
         return np.asarray(leaf, np.int32)  # the reference's OptState.step
@@ -132,9 +149,18 @@ def _save_flat(directory: str, step: int, flat: dict,
             manifest["leaves"][name] = {"file": None}
             continue
         fn = f"leaf_{i:05d}.npy"
-        np.save(os.path.join(tmp, fn), arr)
+        bf16 = arr.dtype == BF16_BITS
+        if bf16:  # the header np.save gives an ml_dtypes bfloat16 array
+            with open(os.path.join(tmp, fn), "wb") as f:
+                np.lib.format.write_array_header_1_0(f, {
+                    "descr": "<V2", "fortran_order": False,
+                    "shape": arr.shape})
+                f.write(np.ascontiguousarray(arr).tobytes())
+        else:
+            np.save(os.path.join(tmp, fn), arr)
         manifest["leaves"][name] = {
-            "file": fn, "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "file": fn, "shape": list(arr.shape),
+            "dtype": "bfloat16" if bf16 else str(arr.dtype),
             "crc32": _crc32(arr),
         }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:

@@ -13,6 +13,7 @@ from . import (
     qwen2_72b,
     qwen3_moe_30b_a3b,
     rwkv6_7b,
+    whisper_small,
 )
 
 _ARCHS = {
@@ -21,6 +22,7 @@ _ARCHS = {
     "qwen2-72b": qwen2_72b,
     "nemotron-4-15b": nemotron_4_15b,
     "deepseek-67b": deepseek_67b,
+    "whisper-small": whisper_small,
     "granite-moe-3b-a800m": granite_moe_3b_a800m,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "rwkv6-7b": rwkv6_7b,

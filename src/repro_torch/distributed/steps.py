@@ -1,6 +1,8 @@
-"""Train step builder on one device, with exact microbatch accumulation
-(twin of ``repro/distributed/steps.py::make_train_step`` without the mesh:
-no ``grad_shardings``)."""
+"""Train, prefill and serve step factories on one device, with exact
+microbatch accumulation (twin of ``repro/distributed/steps.py`` without
+the mesh: no ``grad_shardings``, no ``input_specs``).  Each dispatches on
+``cfg.enc_layers``: whisper's encoder-decoder, else the decoder-only
+``lm``."""
 
 from __future__ import annotations
 
@@ -8,17 +10,13 @@ import dataclasses
 
 import torch
 
-from ..models import lm
+from ..models import lm, whisper
 from ..models.param import Spec, leaf_paths, tree_map
 from ..optim import adamw
 
 
-def model_specs(cfg):
-    """``lm.lm_specs(cfg)`` with every leaf stored in ``cfg.param_dtype``
-    (twin of the reference's ``steps.model_specs``; whisper is not
-    ported).  ``init_params`` and ``from_jax_params`` over these specs
-    give the parameters a train or serve run of ``cfg`` holds."""
-    specs = lm.lm_specs(cfg)
+def with_param_dtype(specs, cfg):
+    """``specs`` with every leaf stored in ``cfg.param_dtype``."""
     if cfg.param_dtype == "float32":
         return specs
 
@@ -28,6 +26,27 @@ def model_specs(cfg):
         return {k: cast(v) for k, v in tree.items()}
 
     return cast(specs)
+
+
+def model_specs(cfg):
+    """``whisper.whisper_specs(cfg)`` when ``cfg.enc_layers``, else
+    ``lm.lm_specs(cfg)``, with every leaf stored in ``cfg.param_dtype``
+    (twin of the reference's ``steps.model_specs``).  ``init_params`` and
+    ``from_jax_params`` over these specs give the parameters a train run
+    of ``cfg`` holds."""
+    return with_param_dtype(
+        whisper.whisper_specs(cfg) if cfg.enc_layers else lm.lm_specs(cfg),
+        cfg)
+
+
+def _loss_fn(params, batch, cfg, denom=None, aux_weight=1.0):
+    if cfg.enc_layers:
+        return whisper.whisper_loss(
+            params, batch["tokens"], batch["labels"], batch["frames"], cfg,
+            denom=denom, aux_weight=aux_weight)
+    return lm.lm_loss(params, batch["tokens"], batch["labels"], cfg,
+                      vis_embed=batch.get("vis_embed"), denom=denom,
+                      aux_weight=aux_weight)
 
 
 def accumulate_grads(params, batch, cfg, microbatches: int = 1):
@@ -58,11 +77,10 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
                          f"{microbatches} microbatches")
     n_valid = (batch["labels"] >= 0).sum().clamp_min(1).float()
     live = tree_map(lambda x: x.detach().requires_grad_(True), params)
-    vis = batch.get("vis_embed")
-    parts = zip(batch["tokens"].chunk(microbatches),
-                batch["labels"].chunk(microbatches),
-                [None] * microbatches if vis is None
-                else vis.chunk(microbatches))
+    # every tensor of the batch splits over its rows (tokens, labels, and
+    # vis_embed or whisper's frames)
+    parts = [dict(zip(batch, xs)) for xs in zip(
+        *(x.chunk(microbatches) for x in batch.values()))]
     acc_dt = getattr(torch, cfg.grad_accum_dtype)
     # autograd's accumulation is the reference's wherever it adds in the
     # accumulator's dtype
@@ -72,10 +90,9 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
                                          device=x.device), live) \
         if own_acc else None
     loss = ce = aux = 0.0
-    for tokens, labels, vis_embed in parts:
-        l, (c, a) = lm.lm_loss(live, tokens, labels, cfg,
-                               vis_embed=vis_embed, denom=n_valid,
-                               aux_weight=1.0 / microbatches)
+    for part in parts:
+        l, (c, a) = _loss_fn(live, part, cfg, denom=n_valid,
+                             aux_weight=1.0 / microbatches)
         l.backward()
         loss, ce = loss + l.detach(), ce + c.detach()
         aux = aux + a.detach()
@@ -104,7 +121,8 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
     ``batch`` holds ``tokens`` and ``labels`` (``(B, n)`` integer tensors
     on the parameters' device, ``B`` a multiple of ``microbatches``) and
     optionally ``vis_embed`` (``(B, nv, d_model)`` patch embeddings
-    prepended to the tokens).  The gradient
+    prepended to the tokens), or whisper's ``frames`` (``(B, enc_frames,
+    d_model)`` frame embeddings for the encoder).  The gradient
     comes from autograd through the model (``accumulate_grads``), whose
     mixer layers run ``kernels.ops.hla2_attention`` or ``ahla_attention``
     (``cfg.mixer``: forward and backward kernels on the card; ``cfg.remat
@@ -130,3 +148,53 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg):
+    """``(params, batch) -> (last_logits (B, vocab), states)``.
+
+    ``batch`` holds ``tokens (B, n)`` (and ``frames`` for whisper,
+    ``vis_embed`` for a VLM).  The states are allocated inside the step on
+    the parameters' device and filled: a KV cache sized to the prompt
+    exactly, as in the reference (a decode step after it writes at the
+    clamped start ``n - 1``, over the last key; ``whisper_apply`` and
+    ``lm_apply`` given no states add a 64-token margin), streaming states
+    built from zero.  Decode continues from them (``make_serve_step``)."""
+
+    def prefill_step(params, batch):
+        B, n = batch["tokens"].shape
+        dev = params["embed"]["embedding"].device
+        if cfg.enc_layers:
+            states = whisper.whisper_init_states(cfg, B, dev, n)
+            logits, states, _ = whisper.whisper_apply(
+                params, batch["tokens"], batch["frames"], cfg,
+                states=states, mode="prefill")
+        else:
+            total = n + (cfg.vis_tokens or 0)  # a VLM prepends patch tokens
+            states = lm.lm_init_states(cfg, B, dev, total) \
+                if lm.needs_prealloc_states(cfg) else None
+            logits, states, _ = lm.lm_apply(
+                params, batch["tokens"], cfg, states=states, mode="prefill",
+                vis_embed=batch.get("vis_embed"))
+        return logits[:, -1], states
+
+    return prefill_step
+
+
+def make_serve_step(cfg):
+    """``(params, batch, states) -> (logits (B, vocab), states)``: one new
+    token per row (``batch``: ``tokens (B, 1)``, ``positions (B, 1)``)
+    against pre-filled states, which it updates in place."""
+
+    def serve_step(params, batch, states):
+        if cfg.enc_layers:
+            logits, states, _ = whisper.whisper_apply(
+                params, batch["tokens"], None, cfg, states=states,
+                positions=batch["positions"], mode="decode")
+        else:
+            logits, states, _ = lm.lm_apply(
+                params, batch["tokens"], cfg, states=states,
+                positions=batch["positions"], mode="decode")
+        return logits[:, -1], states
+
+    return serve_step

@@ -25,7 +25,11 @@ one the engine refuses it, as the reference's does.  rwkv6-7b serves its
 self-contained RWKV-6 layers (no override: it is attention-free); the
 engine refuses the hybrid jamba-1.5-large-398b with any mixer, as the
 reference's does, and the CLI exits with its message before allocating
-parameters.  ``--spec ngram`` (prompt lookup)
+parameters.  ``--arch whisper-small`` (with a streaming ``--mixer``)
+serves a decoder-only stack of whisper's widths, with no encoder, as the
+reference's CLI does (it builds ``lm_specs`` whatever the arch); whisper
+itself serves through ``models.whisper.whisper_apply`` and the step
+factories of ``distributed/steps.py``.  ``--spec ngram`` (prompt lookup)
 or ``--spec lm`` (a draft LM: ``--draft-arch``, reduced, random weights,
 the target's vocabulary) decodes speculatively, ``--spec-k`` draft tokens
 a round.
@@ -65,8 +69,8 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..distributed.steps import model_specs
-from ..models import seq_op
+from ..distributed.steps import with_param_dtype
+from ..models import lm, seq_op
 from ..models.param import init_params
 from ..obs import JsonlSink, Obs, profile_capture, write_metrics
 from ..runtime.faults import FaultPlan, parse_fault
@@ -164,7 +168,9 @@ def main(argv=None):
         check_servable(cfg, spec)
     except ValueError as e:
         raise SystemExit(f"[serve] {cfg.name} ({cfg.mixer}): {e}") from None
-    params = init_params(model_specs(cfg), args.seed, device)
+    # the decoder-only stack whatever the arch (the reference's CLI)
+    params = init_params(with_param_dtype(lm.lm_specs(cfg), cfg), args.seed,
+                         device)
     engine = Engine(
         cfg, params, slots=args.slots,
         max_len=args.prompt_len + args.gen_len + 8,

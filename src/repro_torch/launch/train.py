@@ -31,7 +31,10 @@ step's ``aux``).  rwkv6-7b trains its self-contained RWKV-6 layers and
 jamba-1.5-large-398b its hybrid groups (7 Mamba layers and attention at
 position 4, MoE on every second layer), both plain torch, jamba with its
 bf16 parameters and moments (``param_dtype``, ``moment_dtype``).
-``--mixer ahla`` trains the same model with the AHLA
+whisper-small builds its encoder-decoder parameters but its first step
+fails for want of ``frames``, which the token stream does not yield, as
+in the reference's CLI; ``distributed/steps.py``'s train step trains it
+given a batch with ``frames``.  ``--mixer ahla`` trains the same model with the AHLA
 mixer (its own kernels, the same parameter layout); ``--mixer hla3``,
 ``hla3_paper`` or ``linattn`` with the rest of the HLA family (plain
 torch, the same parameter layout); ``--mixer gla`` with gated linear

@@ -12,7 +12,9 @@ A KV cache is one per layer, ``KVCache(k, v, length)`` with one ``length``
 shared by every row.  The cache is written in place at ``length`` through
 device-side indices and attended over its whole ``max_len`` under the
 ``kv_pos < kv_len`` mask, so a decode step never reads a value back to
-the host.  ``cross_kv`` (whisper) is not ported.
+the host.  Whisper's encoder attends with ``causal=False``, and its
+decoder's cross-attention reads the encoder's K/V (``cross_kv_apply``)
+through ``attention_apply(cross_kv=)``: no cache, no RoPE, all keys.
 """
 
 from __future__ import annotations
@@ -109,16 +111,27 @@ def init_kv_cache(B, Hk, max_len, dh, device="cuda") -> KVCache:
 
 
 def attention_apply(p, x, cfg, *, positions=None,
-                    cache: Optional[KVCache] = None, use_rope: bool = True):
-    """Causal self-attention sublayer over ``x (B, n, d_model)``.  With a
-    ``cache``, K/V are written into it at ``cache.length`` and
-    ``cache.length`` advances by n, in place; attention then runs over the
-    whole cache.  Returns ``(out, cache)`` (``cache`` None without one)."""
+                    cache: Optional[KVCache] = None, cross_kv=None,
+                    causal: bool = True, use_rope: bool = True):
+    """Self- or cross-attention sublayer over ``x (B, n, d_model)``.
+
+    Self-attention (``cross_kv`` None) attends causally unless ``causal``
+    is False (whisper's encoder).  With a ``cache``, K/V are written into
+    it at ``cache.length`` and ``cache.length`` advances by n, in place;
+    attention then runs over the whole cache.  Cross-attention projects
+    only q and attends over ``cross_kv = (k, v)``, each ``(B, Hk, ne,
+    dh)``, non-causally, with no cache and no RoPE.  Returns ``(out,
+    cache)`` (``cache`` None without one)."""
     B, n, _ = x.shape
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = dense_apply(p["wq"], x).reshape(B, n, H, dh)
+    if cross_kv is not None:
+        kc, vc = cross_kv
+        out = flash_attention(q.transpose(1, 2), kc, vc, causal=False)
+        out = out.transpose(1, 2).reshape(B, n, H * dh)
+        return dense_apply(p["wo"], out), None
     if positions is None:
         positions = torch.arange(n, device=x.device)[None]
-    q = dense_apply(p["wq"], x).reshape(B, n, H, dh)
     k = dense_apply(p["wk"], x).reshape(B, n, Hk, dh)
     v = dense_apply(p["wv"], x).reshape(B, n, Hk, dh)
     if use_rope:
@@ -126,7 +139,7 @@ def attention_apply(p, x, cfg, *, positions=None,
         k = rope(k, positions, cfg.rope_theta)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     if cache is None:
-        out = flash_attention(q, k, v)
+        out = flash_attention(q, k, v, causal=causal)
     else:
         max_len = cache.k.shape[2]
         if n > max_len:
@@ -140,8 +153,8 @@ def attention_apply(p, x, cfg, *, positions=None,
         cache.v.index_copy_(2, idx, v.to(cache.v.dtype))
         q_offset = cache.length.clone()
         cache.length.add_(n)
-        out = flash_attention(q, cache.k, cache.v, q_offset=q_offset,
-                              kv_len=cache.length)
+        out = flash_attention(q, cache.k, cache.v, causal=causal,
+                              q_offset=q_offset, kv_len=cache.length)
     out = out.transpose(1, 2).reshape(B, n, H * dh)
     return dense_apply(p["wo"], out), cache
 
@@ -176,3 +189,18 @@ seq_op.register_op(seq_op.SequenceOp(
     needs_positions=True,
     prealloc_state=True,  # prefill fills a preallocated cache
 ))
+
+
+def cross_kv_specs(cfg):
+    d, Hk, dh = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
+    return {"wk": dense_specs(d, Hk * dh), "wv": dense_specs(d, Hk * dh)}
+
+
+def cross_kv_apply(p, enc_out, cfg):
+    """The encoder output's K/V for cross-attention, each ``(B, Hk, ne,
+    dh)`` in ``enc_out``'s dtype."""
+    B, ne, _ = enc_out.shape
+    Hk, dh = cfg.n_kv_heads, cfg.head_dim
+    k = dense_apply(p["wk"], enc_out).reshape(B, ne, Hk, dh)
+    v = dense_apply(p["wv"], enc_out).reshape(B, ne, Hk, dh)
+    return k.transpose(1, 2), v.transpose(1, 2)

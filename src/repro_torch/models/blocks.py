@@ -1,8 +1,8 @@
 """Elementary blocks: RMSNorm, LayerNorm, dense (with an optional bias),
-embedding and its tied unembedding, RoPE, the MLPs — plain functions on
-parameter dicts (twin of ``repro/models/blocks.py``).  ``sinusoidal_pos``
-and the mesh-aware embedding gather (whisper, multi-GPU) are not
-ported."""
+embedding and its tied unembedding, RoPE, whisper's sinusoidal positions,
+the MLPs — plain functions on parameter dicts (twin of
+``repro/models/blocks.py``).  The mesh-aware embedding gather (multi-GPU)
+is not ported."""
 
 from __future__ import annotations
 
@@ -78,6 +78,16 @@ def rope(x, positions, theta: float = 1e4):
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      -1).to(x.dtype)
+
+
+def sinusoidal_pos(n: int, d: int, dtype=torch.float32, device=None):
+    """``(n, d)`` fixed positions: angle ``pos / 10000 ** (2 * dim / d)``
+    for ``dim < d // 2``, sines then cosines, computed in fp32 and cast to
+    ``dtype``."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
 def mlp_specs(d: int, d_ff: int, act: str):

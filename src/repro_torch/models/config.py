@@ -73,6 +73,9 @@ class ModelConfig:
     vis_tokens: int = 0
     # rwkv6
     rwkv_head_dim: int = 64
+    # encoder-decoder (whisper): enc_layers > 0 activates the encoder
+    enc_layers: int = 0
+    enc_frames: int = 1500  # precomputed frame embeddings (stub frontend)
     dtype: str = "bfloat16"  # activation/compute dtype
     param_dtype: str = "float32"  # storage dtype (jamba-scale: bfloat16)
     moment_dtype: str = "float32"  # AdamW mu/nu (jamba-scale: bfloat16)

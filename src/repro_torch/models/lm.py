@@ -353,10 +353,17 @@ def lm_loss(params, tokens, labels, cfg, *, vis_embed=None, denom=None,
                               vis_embed=vis_embed)
     if vis_embed is not None:
         logits = logits[:, vis_embed.shape[1]:]
-    logits = logits.float()
-    mask = labels >= 0
-    nll = F.cross_entropy(logits.flatten(0, 1), labels.clamp_min(0).flatten()
-                          .long(), reduction="none")
-    d = mask.sum().clamp_min(1).float() if denom is None else denom
-    ce = (nll * mask.flatten()).sum() / d
+    ce = next_token_ce(logits, labels, denom)
     return ce + aux_weight * aux, (ce, aux)
+
+
+def next_token_ce(logits, labels, denom=None):
+    """Cross-entropy of ``logits (B, n, vocab)`` in fp32 against ``labels
+    (B, n)``, summed over the labels >= 0 and divided by ``denom``
+    (default: their count)."""
+    mask = labels >= 0
+    nll = F.cross_entropy(logits.float().flatten(0, 1),
+                          labels.clamp_min(0).flatten().long(),
+                          reduction="none")
+    d = mask.sum().clamp_min(1).float() if denom is None else denom
+    return (nll * mask.flatten()).sum() / d

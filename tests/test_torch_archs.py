@@ -118,14 +118,17 @@ def _inputs(cfg, B=2, n=16, seed=0):
 
 
 def test_archs_registered():
-    assert set(ARCHS) < set(list_archs())
-    for arch in ARCHS:
+    from repro.configs import list_archs as ref_list_archs
+
+    assert list_archs() == ref_list_archs()  # all 11, whisper-small too
+    for arch in ARCHS + ("whisper-small",):
         ref, cfg = ref_get_config(arch), get_config(arch)
         for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
                   "vocab", "mixer", "mlp", "qkv_bias", "tie_embeddings",
                   "rope_theta", "vis_tokens", "remat", "dtype", "head_dim",
                   "group_size", "attn_index", "rwkv_head_dim", "param_dtype",
-                  "moment_dtype", "grad_accum_dtype", "attn_free"):
+                  "moment_dtype", "grad_accum_dtype", "attn_free",
+                  "enc_layers", "enc_frames"):
             assert getattr(cfg, f) == getattr(ref, f), (arch, f)
         for sub in ("moe", "mamba"):
             a, b = getattr(cfg, sub), getattr(ref, sub)

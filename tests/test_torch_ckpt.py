@@ -223,14 +223,119 @@ def test_ckpt_metrics_and_spans_match_reference(tmp_path, point, async_save):
 
 
 def test_bf16_leaf_raises_naming_it(tmp_path):
-    tree = {"layers": {"w": torch.zeros(2, dtype=torch.bfloat16)}}
-    with pytest.raises(CheckpointError, match="'layers/w'.*bfloat16"):
-        save_checkpoint(str(tmp_path), 0, tree)
-    mgr = CheckpointManager(str(tmp_path))
-    with pytest.raises(CheckpointError, match="layers/w"):
-        mgr.save(0, tree)  # in the caller's thread, before any write
+    """A bf16 leaf saves (sync and async) and comes back bit for bit; a leaf
+    whose dtype has no file form (float8) raises naming it, before any
+    write."""
+    w = torch.randn(2, 3).to(torch.bfloat16)
+    tree = {"layers": {"w": w}}
+    save_checkpoint(str(tmp_path / "sync"), 0, tree)
+    mgr = CheckpointManager(str(tmp_path / "async"))
+    mgr.save(0, tree)
     mgr.wait()
-    assert list_steps(str(tmp_path)) == []
+    for d in ("sync", "async"):
+        got, man = restore_checkpoint(str(tmp_path / d), tree)
+        assert man["leaves"]["layers/w"]["dtype"] == "bfloat16"
+        assert got["layers"]["w"].dtype == torch.bfloat16
+        assert torch.equal(got["layers"]["w"].view(torch.int16),
+                           w.view(torch.int16))
+    bad = {"layers": {"w": torch.zeros(2, dtype=torch.float8_e4m3fn)}}
+    with pytest.raises(CheckpointError, match="'layers/w'.*float8"):
+        save_checkpoint(str(tmp_path / "bad"), 0, bad)
+    mgr = CheckpointManager(str(tmp_path / "bad"))
+    with pytest.raises(CheckpointError, match="layers/w"):
+        mgr.save(0, bad)  # in the caller's thread, before any write
+    mgr.wait()
+    assert list_steps(str(tmp_path / "bad")) == []
+
+
+def _bf16_pair(seed):
+    """The same bf16 values as a reference array and a port tensor, beside
+    an fp32 leaf."""
+    x = np.random.RandomState(seed).randn(3, 5).astype(np.float32)
+    return ({"w": jnp.asarray(x, jnp.bfloat16), "b": jnp.asarray(x[0])},
+            {"w": torch.from_numpy(x).to(torch.bfloat16),
+             "b": torch.from_numpy(x[0].copy())})
+
+
+def test_bf16_leaf_file_equals_reference(tmp_path):
+    """The port writes the reference's bf16 leaf byte for byte: the ``.npy``
+    (a ``<V2`` header, the raw 2-byte values) and the manifest's shape,
+    dtype ``"bfloat16"`` and crc32."""
+    ref_tree, port_tree = _bf16_pair(0)
+    ref = ref_ckpt.save_checkpoint(str(tmp_path / "ref"), 3, ref_tree)
+    port = save_checkpoint(str(tmp_path / "port"), 3, port_tree)
+    want, got = _manifest(ref)["leaves"], _manifest(port)["leaves"]
+    assert want == got and got["w"]["dtype"] == "bfloat16"
+    for info in got.values():
+        with open(os.path.join(ref, info["file"]), "rb") as a, \
+                open(os.path.join(port, info["file"]), "rb") as b:
+            assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_bf16_leaf_restores_bit_for_bit(tmp_path, writer):
+    """The port restores a bf16 leaf written by either package to the
+    reference's bits, as a ``torch.bfloat16`` tensor.  (The reference's own
+    restore rejects the file: jax takes no ``|V2`` array.)"""
+    ref_tree, port_tree = _bf16_pair(1)
+    if writer == "port":
+        save_checkpoint(str(tmp_path), 5, port_tree)
+    else:
+        ref_ckpt.save_checkpoint(str(tmp_path), 5, ref_tree)
+    template = {"w": torch.zeros(3, 5, dtype=torch.bfloat16),
+                "b": torch.zeros(5)}
+    got, _ = restore_checkpoint(str(tmp_path), template)
+    assert got["w"].dtype == torch.bfloat16
+    want = np.asarray(ref_tree["w"]).view(np.int16)
+    assert np.array_equal(got["w"].view(torch.int16).numpy(), want)
+    assert np.array_equal(got["b"].numpy(), np.asarray(ref_tree["b"]))
+
+
+def test_bf16_jamba_fault_and_resume_matches_uninterrupted(tmp_path):
+    """Reduced jamba with bf16 parameters and moments through the port's
+    ``FaultTolerantLoop``: a checkpoint after step 1, a fault at step 2, a
+    fresh loop that resumes from step 1 and gives the uninterrupted run's
+    step-2 loss bit for bit, with every leaf back in bf16."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.distributed.steps import model_specs
+    from repro_torch.models.param import init_params
+    from repro_torch.runtime.faults import InjectedFault
+    from repro_torch.runtime.ft import FaultTolerantLoop
+
+    cfg = get_config("jamba-1.5-large-398b", reduced=True).replace(
+        param_dtype="bfloat16", moment_dtype="bfloat16")
+    step = make_train_step(cfg, adamw.OptConfig(lr=3e-4, warmup_steps=1,
+                                                total_steps=3))
+    stream = SyntheticStream(DataConfig(cfg.vocab, 16, 2, seed=0))
+
+    def place(batch):
+        return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    def run(d, faults=None):
+        losses = []
+
+        def step_fn(p, o, b):
+            p, o, m = step(p, o, b)
+            losses.append(float(m["loss"]))
+            return p, o, m
+
+        params = init_params(model_specs(cfg), 0, "cpu")
+        loop = FaultTolerantLoop(
+            step_fn, stream, str(tmp_path / d), ckpt_every=2, faults=faults,
+            place_batch=place, log=lambda *a, **k: None)
+        out = loop.run(params, adamw.init_opt_state(params, "bfloat16"), 3)
+        return out, losses
+
+    (_, _, last), want = run("whole")
+    assert last == 2 and len(want) == 3
+    with pytest.raises(InjectedFault, match="train.step"):
+        run("ft", FaultPlan(FaultSpec("train.step", at=2)))
+    assert list_steps(str(tmp_path / "ft")) == [1]
+    (params, opt, last), got = run("ft")
+    assert last == 2 and got == want[2:]
+    leaves = [x for _, x in leaf_paths(params)] + \
+        [x for _, x in leaf_paths(opt.mu)] + [x for _, x in leaf_paths(opt.nu)]
+    assert {x.dtype for x in leaves} == {torch.bfloat16}
 
 
 def test_saved_leaves_do_not_follow_later_in_place_updates(tmp_path):

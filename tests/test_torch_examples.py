@@ -1,12 +1,19 @@
-"""The port's two examples (``examples/torch_quickstart.py``,
-``examples/torch_long_context_decode.py``) run on the CPU with short
-arguments and print their reference twins' lines; the model the quickstart
-trains has the reference's parameter count, and the KV-cache figure of the
-long-context example equals the reference's ``eval_shape`` of a softmax
-``lm_init_states`` byte for byte."""
+"""The port's four examples (``examples/torch_quickstart.py``,
+``torch_long_context_decode.py``, ``torch_hla_vs_baselines.py``,
+``torch_train_hla_100m.py``) run on the CPU with short arguments and print
+their reference twins' lines; the models the quickstart, the recall
+comparison (each of its five mixers) and the 100M example train have the
+reference's parameter counts, and the KV-cache figure of the long-context
+example equals the reference's ``eval_shape`` of a softmax
+``lm_init_states`` byte for byte.  The 100M example rebinds
+``configs.hla_1b.reduced`` when it is loaded, so it runs in a subprocess,
+and the loads that read its config restore the attribute."""
 
 import importlib.util
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -14,9 +21,12 @@ import numpy as np
 import pytest
 
 from repro.configs import get_config as ref_get_config
+from repro.distributed import steps as ref_steps
 from repro.models import lm as ref_lm
 from repro.models.param import param_count as ref_param_count
 from repro_torch.configs import get_config
+from repro_torch.distributed import steps
+from repro_torch.models.param import param_count
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -78,3 +88,63 @@ def test_kv_cache_bytes_equal_reference(reduced, B, ctx):
     ours = mod.state_bytes(lm.lm_init_states(cfg, B, torch.device("meta")))
     assert ours == _ref_bytes(jax.eval_shape(
         lambda: ref_lm.lm_init_states(ref_cfg, B, ctx)))
+
+
+def test_hla_vs_baselines_runs_on_cpu(capsys):
+    mod = _example("torch_hla_vs_baselines")
+    mod.main(["--steps", "2", "--batch", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    got = re.findall(r"^(\w+) +recall accuracy: +\d+\.\d%  \(final loss "
+                     r"\d+\.\d{3}\)$", out, re.M)
+    assert got == ["softmax", "linattn", "hla2", "ahla", "hla3"], out
+    for mixer in got:  # the reference example's config, mixer by mixer
+        ref_cfg = ref_get_config("hla-1b", reduced=True).replace(
+            n_layers=2, d_model=128, n_heads=4, n_kv_heads=4, d_ff=256,
+            vocab=64)
+        if mixer != "hla2":
+            ref_cfg = ref_cfg.replace(mixer=mixer)
+        assert param_count(steps.model_specs(mod.config(mixer))) == \
+            ref_param_count(ref_steps.model_specs(ref_cfg)), mixer
+
+
+def _load_100m(monkeypatch, path, hla_1b):
+    """The 100M example at ``path`` loaded for its ``_reduced_100m``, with
+    ``sys.argv`` and ``hla_1b.reduced`` restored after the test."""
+    monkeypatch.setattr(sys, "argv", ["pytest"])
+    monkeypatch.setattr(hla_1b, "reduced", hla_1b.reduced)
+    spec = importlib.util.spec_from_file_location("example_100m", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._reduced_100m()
+
+
+def test_train_hla_100m_has_reference_config(monkeypatch):
+    import repro.configs.hla_1b as ref_hla_1b
+    import repro_torch.configs.hla_1b as hla_1b
+    from repro_torch.models import lm
+
+    ref_cfg = _load_100m(monkeypatch, ROOT / "examples" /
+                         "train_hla_100m.py", ref_hla_1b)
+    cfg = _load_100m(monkeypatch, ROOT / "examples" /
+                     "torch_train_hla_100m.py", hla_1b)
+    n = param_count(lm.lm_specs(cfg))
+    assert n == ref_param_count(ref_lm.lm_specs(ref_cfg))
+    assert 90e6 < n < 110e6
+    for f in ("n_layers", "d_model", "n_heads", "d_ff", "vocab", "remat",
+              "dtype", "mixer"):
+        assert getattr(cfg, f) == getattr(ref_cfg, f), f
+
+
+def test_train_hla_100m_runs_on_cpu(tmp_path):
+    env = dict(os.environ, STEPS="1", PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_train_hla_100m.py"),
+         "--batch", "1", "--seq", "64", "--device", "cpu", "--ckpt-dir",
+         str(tmp_path / "ck"), "--ckpt-every", "1", "--metrics",
+         str(tmp_path / "m.jsonl")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    # the loop's last step index, as the reference prints it
+    assert "[train] finished at step 0 |" in out.stdout, out.stdout
+    assert os.listdir(tmp_path / "ck") == ["step_00000000"]
+    assert len((tmp_path / "m.jsonl").read_text().splitlines()) == 1
