@@ -206,11 +206,33 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    decoder tokens + 8 x 1500 frames with the config's ``remat="full"``,
    bf16 activations: the loss falls, 24 + 12 launches a step with an HLA
    mixer;
+16. (runs after phase 15) hla-1b at full size under a one-rank ``(data,
+   model)`` device mesh (an NCCL process group of one rank, ``make_mesh((1,
+   1))``; parameters, moments and slot states as DTensors, every HLA kernel
+   call through ``shard_ops.call_sharded``), with ``hla2`` and ``ahla``:
+   (a) 2 AdamW steps at 2 x 2048 with ``remat="full"``: the step-0 loss,
+   every gradient leaf, each step's loss and the final parameters equal
+   the unsharded step's on the same weights bit for bit, 48 + 24 launches
+   a step; (b) ``Engine(mesh=)``, 4 greedy requests, 4 slots, 256-640-token
+   prompts, 32 tokens: the unsharded engine's streams, 24 chunk launches
+   an admission and 24 step launches a decode step, one host transfer an
+   admission and one a decode block (``analysis.contracts``' count and the
+   sync debug mode's warnings); TTFT, decode tok/s, peak memory of both;
+   (c) the dry run (``launch/dryrun.py``, host work on fake process groups,
+   ``DRYRUN_WORKERS`` at a time, started after (a) and (b), which time the
+   host, and run beside phase 7; its lines printed after phase 7) of
+   hla-1b,
+   qwen2-72b and codeqwen1.5-7b with ``hla2`` at full depth, ``train_4k``
+   (``decode_32k`` cut for time), on a (1, 4) mesh and the production
+   16 x 16: one
+   line a cell (GiB a rank, whether it fits in 80 GB, collective bytes by
+   kind, the roofline's terms and bottleneck);
 7. time each kernel and its plain version at its path's shapes (the step
    kernels also at 16 rows, one slot; the chunk forwards also at the
    verify shape, ``[verify]``; all six also at phase 13's d = 64 shapes,
    ``[d=64]``; the HLA2 three at phase 14's jamba shapes, ``[jamba]``;
-   all six at phase 15's whisper shapes, ``[whisper]``).
+   all six at phase 15's whisper shapes, ``[whisper]``; phase 16's
+   launches are logged by that phase, not timed here).
 
 The second-to-last line is the ``kernels`` JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -3374,6 +3396,340 @@ def whisper_phase(device, cfg, prompts=WHISPER_PROMPTS, train_shape=None):
 
 
 # --------------------------------------------------------------------------
+# phase 16: hla-1b under a device mesh (after phase 15)
+# --------------------------------------------------------------------------
+
+MESH_TRAIN = (2, 2048)  # (a): rows x tokens, the config's remat="full"
+MESH_STEPS = 2
+MESH_SERVE = dict(n_req=4, slots=4, lens=(256, 640), gen=32)
+# (c): the dry-run cells, (arch, mixer override, shape) on each mesh ("1x4":
+# 4 ranks as (1, 4); None: the production 16 x 16).  train_4k only: with
+# decode_32k too the script grew past phase 16's budget (949 s in all, 225
+# s over the run before it; the decode cells' lines in PERF.md come from
+# launch/dryrun.py run on its own)
+DRYRUN_CELLS = tuple(
+    (arch, mixer, "train_4k", mesh)
+    for arch, mixer in (("hla-1b", None), ("qwen2-72b", None),
+                        ("codeqwen1.5-7b", "hla2"))
+    for mesh in ("1x4", None))
+DRYRUN_WORKERS = 6  # concurrent dry-run processes (host cores, niced)
+DRYRUN_TIMEOUT = 900
+
+
+def start_dryruns(cells=DRYRUN_CELLS, reduced=False):
+    """Start phase 16 (c)'s dry runs: one ``repro_torch.launch.dryrun``
+    process a cell on a fake process group, ``DRYRUN_WORKERS`` at a time,
+    at the lowest CPU priority.  They are the host's work (no card): the
+    script starts them after phase 16 (a) and (b), whose host times they
+    would move, so they run beside phase 7 (device-timed).  Returns ``(pool, futures)`` for
+    ``collect_dryruns``."""
+    import os
+    import tempfile
+
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+
+    def one(cell):
+        arch, mixer, shape, mesh = cell
+        path = out_dir / f"{arch}_{shape}_{mesh or 'prod'}.json"
+        cmd = ["nice", "-n", "19", sys.executable, "-m",
+               "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--json", str(path)]
+        cmd += ["--mesh", mesh] if mesh else []
+        cmd += ["--mixer", mixer] if mixer else []
+        cmd += ["--reduced"] if reduced else []
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              cwd=ROOT, timeout=DRYRUN_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            return cell, None, wall, proc.stderr[-3000:]
+        return cell, json.loads(path.read_text()), wall, None
+
+    pool = ThreadPoolExecutor(DRYRUN_WORKERS)
+    return pool, [pool.submit(one, c) for c in cells]
+
+
+def collect_dryruns(handle):
+    """Wait for the dry runs and print one line a cell."""
+    pool, futures = handle
+    try:
+        done = [f.result() for f in futures]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    lines = []
+    failed = [(cell, err) for cell, _, _, err in done if err is not None]
+    for cell, err in failed:
+        log(f"[dryrun] {cell} failed: {err}")
+    for (arch, mixer, shape, _), res, wall, _ in done:
+        if res is None:
+            continue
+        mem, roof = res["memory"], res["roofline"]
+        coll = ", ".join(f"{k} {v / 2**30:.2f} GiB"
+                         for k, v in res["collectives"]["bytes"].items())
+        line = (f"[dryrun] {arch}{'/' + mixer if mixer else ''} x {shape} "
+                f"on mesh{res['mesh']}: {mem['peak_bytes'] / 2**30:.2f} GiB "
+                f"a rank at peak (params {mem['param_bytes'] / 2**30:.2f}, "
+                f"grads {mem['grad_bytes'] / 2**30:.2f}, moments "
+                f"{mem['moment_bytes'] / 2**30:.2f}, inputs "
+                f"{mem['input_bytes'] / 2**30:.2f}), "
+                f"{'fits' if res['fits_80gb'] else 'does not fit'} in 80 GB "
+                f"| collectives {coll} | {res['cost']['flops'] / 1e12:.1f} "
+                f"TFLOP a rank | roofline compute {roof['compute_s']:.3f}s, "
+                f"memory {roof['memory_s']:.3f}s, collective "
+                f"{roof['collective_s']:.3f}s: {roof['bottleneck']} "
+                f"(host work, {wall:.0f}s)")
+        log(line)
+        lines.append(line)
+    if failed:
+        raise AssertionError(f"dry runs failed: {[c for c, _ in failed]}")
+    return lines
+
+
+def _host(tree):
+    from repro_torch.distributed.sharding import full
+    from repro_torch.models.param import tree_map
+
+    return tree_map(lambda x: full(x).detach().cpu(), tree)
+
+
+def _max_diff(a, b):
+    from repro_torch.models.param import leaf_paths
+
+    return max(0.0 if x.equal(y) else
+               float((x.double() - y.double()).abs().max())
+               for (_, x), (_, y) in zip(leaf_paths(a), leaf_paths(b)))
+
+
+def mesh_train(device, mesh, cfg, shape=MESH_TRAIN, steps=MESH_STEPS,
+               lr=1e-5):
+    """(a) ``steps`` AdamW steps of ``cfg`` with the parameters and moments
+    as DTensors on ``mesh`` against the same steps unsharded, from the same
+    seeded weights: the step-0 loss and every gradient leaf, each step's
+    loss and the final parameters.  Returns the summary numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import steps as S
+    from repro_torch.models.param import init_params
+    from repro_torch.optim import adamw
+
+    batch, seq = shape
+    host = SyntheticStream(DataConfig(cfg.vocab, seq, batch, seed=0)).batch(0)
+    data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    opt_cfg = adamw.OptConfig(lr=lr, warmup_steps=1, total_steps=steps)
+    ps, ms = S.make_shardings(cfg, mesh)
+
+    def run(sharded):
+        params = init_params(S.model_specs(cfg), 0, device)
+        state = adamw.init_opt_state(params, cfg.moment_dtype)
+        batch_ = data
+        if sharded:
+            params = shd.distribute(params, ps, mesh)
+            state = adamw.OptState(0, shd.distribute(state.mu, ms, mesh),
+                                   shd.distribute(state.nu, ms, mesh))
+            batch_ = {k: shd.distribute_leaf(
+                v, mesh, shd.batch_sharding(mesh, v.shape))
+                for k, v in data.items()}
+        with shd.use_mesh(mesh if sharded else None):
+            loss0, _, _, grads = S.accumulate_grads(params, batch_, cfg)
+            loss0, grads = float(shd.full(loss0)), _host(grads)
+            step = S.make_train_step(cfg, opt_cfg,
+                                     grad_shardings=ps if sharded else None)
+            losses, step_s = [], []
+            _sync(device)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+
+            def steps_():
+                nonlocal params, state
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    params, state, m = step(params, state, batch_)
+                    losses.append(float(m["loss"]))  # waits for the step
+                    step_s.append(time.perf_counter() - t0)
+
+            _, launches = _count_train(device, cfg, steps_)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30 \
+            if device.type == "cuda" else 0.0
+        return dict(loss0=loss0, grads=grads, losses=losses,
+                    params=_host(params), launches=launches, peak_gib=peak,
+                    step_p50_s=float(np.percentile(step_s, 50)))
+
+    t0 = time.perf_counter()
+    plain = run(False)
+    t1 = time.perf_counter()
+    got = run(True)
+    t2 = time.perf_counter()
+    out = dict(
+        loss0_diff=abs(got["loss0"] - plain["loss0"]),
+        grad_diff=_max_diff(got["grads"], plain["grads"]),
+        loss_diff=max(abs(a - b) for a, b in zip(got["losses"],
+                                                 plain["losses"])),
+        param_diff=_max_diff(got["params"], plain["params"]),
+        losses=got["losses"], launches=got["launches"],
+        step_p50_s=got["step_p50_s"], peak_gib=got["peak_gib"],
+        plain_step_p50_s=plain["step_p50_s"], plain_peak_gib=plain["peak_gib"])
+    log(f"mesh train {cfg.name} ({cfg.mixer}; {cfg.n_layers} layers, "
+        f"{cfg.dtype} activations, remat {cfg.remat}) on "
+        f"mesh{dict(zip(mesh.mesh_dim_names, mesh.shape))}: {steps} AdamW "
+        f"steps at {batch} x {seq}: loss "
+        f"{' '.join(f'{x:.4f}' for x in got['losses'])} | largest "
+        f"difference from the unsharded step: step-0 loss "
+        f"{out['loss0_diff']:.3g}, gradient {out['grad_diff']:.3g}, losses "
+        f"{out['loss_diff']:.3g}, parameters {out['param_diff']:.3g} | step "
+        f"p50 {got['step_p50_s']:.3f}s (unsharded {plain['step_p50_s']:.3f}s)"
+        f" | peak {got['peak_gib']:.2f} GiB (unsharded "
+        f"{plain['peak_gib']:.2f}) | launches {got['launches']} | "
+        f"{t1 - t0:.1f}s unsharded, {t2 - t1:.1f}s on the mesh")
+    want = _want_train(cfg, steps)
+    for name, launches in (("sharded", got["launches"]),
+                           ("unsharded", plain["launches"])):
+        if launches != want:
+            raise AssertionError(f"{name} launches {launches}, want {want}")
+    if max(out["loss0_diff"], out["grad_diff"], out["loss_diff"],
+           out["param_diff"]) > 0:
+        # a one-rank mesh runs every op on the whole tensors, so any
+        # difference is a bug; log the leaf at fault for the record
+        raise AssertionError(f"the mesh run differs from the unsharded: "
+                             f"{out}")
+    return out
+
+
+def mesh_serve(device, mesh, params, cfg, n_req=4, slots=4, lens=(256, 640),
+               gen=32, block=8):
+    """(b) ``Engine(mesh=)`` against the unsharded engine: greedy streams
+    equal, one chunk launch a layer and admission and one step launch a
+    layer and decode step, one host transfer an admission and one a decode
+    block (``analysis.contracts``' counts).  Returns the summary numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.contracts import _watch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, GenRequest
+
+    reqs = serve_requests(cfg, n_req, lens, gen)
+    chunk_name, step_name = SERVE_KERNELS[cfg.mixer]
+    runs = {}
+    for sharded in (False, True):
+        t0 = time.perf_counter()
+        p = shd.distribute(params, shd.param_shardings(
+            lm.lm_specs(cfg), mesh), mesh) if sharded else params
+        engine = Engine(cfg, p, slots=slots, max_len=lens[1] + gen + 8,
+                        block=block, seed=0, device=device,
+                        mesh=mesh if sharded else None)
+        engine.run([GenRequest(rid=-1, prompt=reqs[0].prompt,
+                               max_new=block)])
+        engine.obs.reset()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        results, launches, wall = _run_counted(device,
+                                               lambda: engine.run(reqs))
+        bad = [(r.rid, r.status, r.error) for r in results
+               if r.status != "ok" or len(r.tokens) != gen]
+        if bad:
+            raise AssertionError(f"requests not served: {bad}")
+        st = engine.stats
+        want = {chunk_name: cfg.n_layers * n_req,
+                step_name: cfg.n_layers * st["decode_steps"]}
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"launches {launches}, want {want}")
+        peak = torch.cuda.max_memory_allocated(device) / 2**30 \
+            if device.type == "cuda" else 0.0
+        syncs = {}
+        with _watch(device) as w:
+            engine.admit(0, GenRequest(rid=-2, prompt=reqs[0].prompt,
+                                       max_new=2 * block))
+        syncs["admission"] = w
+        with _watch(device) as w:
+            engine.step_block()
+        syncs["decode block"] = w
+        for where, w in syncs.items():
+            n = sum(w.transfers.values())
+            if n != 1 or (w.sync_warnings is not None
+                          and w.sync_warnings != n):
+                raise AssertionError(
+                    f"{'mesh' if sharded else 'plain'} {where}: {n} host "
+                    f"transfers {dict(w.transfers)}, {w.sync_warnings} sync "
+                    f"warnings at {w.sync_sites}; want 1")
+        runs[sharded] = dict(
+            streams=[r.tokens for r in results], launches=launches,
+            ttft_p50_ms=1e3 * float(np.percentile(st["ttft_s"], 50)),
+            decode_tok_s=(st["generated_tokens"] - n_req) / st["decode_s"],
+            peak_gib=peak, wall_s=wall, took_s=time.perf_counter() - t0)
+        del engine, p
+    got, plain = runs[True], runs[False]
+    if got["streams"] != plain["streams"]:
+        raise AssertionError("the mesh engine's streams differ from the "
+                             "unsharded engine's")
+    log(f"mesh serve {cfg.name} ({cfg.mixer}, {cfg.dtype}) on "
+        f"mesh{dict(zip(mesh.mesh_dim_names, mesh.shape))}: {n_req} greedy "
+        f"requests, {slots} slots, prompts {lens[0]}-{lens[1]}, gen {gen}: "
+        f"streams equal the unsharded engine's | TTFT p50 "
+        f"{got['ttft_p50_ms']:.1f} ms (unsharded {plain['ttft_p50_ms']:.1f}) "
+        f"| decode {got['decode_tok_s']:.1f} tok/s (unsharded "
+        f"{plain['decode_tok_s']:.1f}) | peak {got['peak_gib']:.2f} GiB "
+        f"(unsharded {plain['peak_gib']:.2f}) | one host transfer an "
+        f"admission and a decode block | launches {got['launches']} | "
+        f"{plain['took_s']:.1f}s unsharded, {got['took_s']:.1f}s on the "
+        "mesh")
+    return got
+
+
+def mesh_phase(device, configs=None, train_shape=MESH_TRAIN, serve_kw=None):
+    """Phase 16 (a) and (b): hla-1b at full size under a one-rank ``(data,
+    model)`` mesh (NCCL on the card, gloo on a CPU rehearsal), with both
+    kernel mixers: ``mesh_train``, ``mesh_serve``.  (c) is
+    ``start_dryruns`` / ``collect_dryruns``.  Returns the kernels'
+    launches under the mesh and the summaries."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+
+    t0 = time.perf_counter()
+    configs = configs or {m: get_config("hla-1b", mixer=m)
+                          for m in ("hla2", "ahla")}
+    serve_kw = serve_kw or MESH_SERVE
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "nccl" if cuda else "gloo",
+        store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, **({"device_id": device} if cuda else {}))
+    launches, out = {}, {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=device.type)
+        for mixer, cfg in configs.items():
+            trained = mesh_train(device, mesh, cfg, shape=train_shape)
+            params = init_params(lm.lm_specs(cfg), 0, device)
+            served = mesh_serve(device, mesh, params, cfg, **serve_kw)
+            del params
+            out[mixer] = dict(train=trained, serve=served)
+            for d in (trained["launches"], served["launches"]):
+                for k, v in d.items():
+                    launches[k] = launches.get(k, 0) + v
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 16 (a), (b) took {time.perf_counter() - t0:.1f}s; launches "
+        f"under the mesh {launches}")
+    return launches, out
+
+
+# --------------------------------------------------------------------------
 # phase 7: timing
 # --------------------------------------------------------------------------
 
@@ -4001,6 +4357,11 @@ def main() -> int:
     moe = moe_phase(device, {a: get_config(a) for a in MOE + ("hla-1b",)})
     hybrid = hybrid_phase(device, {a: get_config(a) for a in HYBRID})
     whisper = whisper_phase(device, get_config("whisper-small"))
+    mesh_phase(device)
+    # phase 16 (c)'s dry runs: host work, beside phase 7, whose device times
+    # a busy host does not move; (a) and (b) time the host, so they run
+    # before on a quiet one
+    dryruns = start_dryruns()
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels.append(time_verify(device, "hla2", verify_abs,
                                cfg.n_layers * spec["ngram"]["rounds"]))
@@ -4015,6 +4376,10 @@ def main() -> int:
     kernels += time_d64(device, d64, moe)
     kernels += time_jamba(device, jamba_abs, hybrid)
     kernels += time_whisper(device, whisper_abs, whisper)
+    t0 = time.perf_counter()
+    collect_dryruns(dryruns)
+    log(f"phase 16 (c): waited {time.perf_counter() - t0:.1f}s for the dry "
+        "runs after phase 7")
     log(f"all phases passed in {time.perf_counter() - T0:.0f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

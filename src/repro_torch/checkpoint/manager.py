@@ -1,6 +1,6 @@
 """Checkpointing: atomic, async, checksummed, rotated.
 
-Twin of ``repro/checkpoint/manager.py`` on one device, in the reference's
+Twin of ``repro/checkpoint/manager.py``, in the reference's
 on-disk format, so a checkpoint written by either package restores in the
 other: a directory ``step_<8 digits>`` per step holding one ``.npy`` per
 tree leaf and a ``manifest.json`` (step, leaf paths, shapes, dtypes, the
@@ -21,6 +21,12 @@ manifest, the crc32 over those bytes; its bits travel through
 ``torch.int16``, so nothing is cast, and a restore views them back as
 ``torch.bfloat16`` bit for bit.  Another dtype numpy lacks raises
 ``CheckpointError`` naming the leaf.
+
+Under a mesh the leaves are DTensors: a save gathers each into its full
+logical array on every rank (the format stays the reference's) and rank
+0 of the process group writes it.  ``restore_checkpoint(...,
+shardings=, mesh=)`` re-places the restored leaves on the current mesh,
+whatever mesh wrote them: the elastic restore.
 
 Failure domains, as in the reference:
 
@@ -110,6 +116,8 @@ def _to_host(name: str, leaf):
     if leaf is None:
         return None
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):  # the full logical array, on every rank
+            leaf = leaf.full_tensor()
         host = leaf.detach().to("cpu", copy=True)
         if host.dtype == torch.bfloat16:
             return host.view(torch.int16).numpy().view(BF16_BITS)
@@ -124,6 +132,47 @@ def _to_host(name: str, leaf):
     if isinstance(leaf, int) and not isinstance(leaf, bool):
         return np.asarray(leaf, np.int32)  # the reference's OptState.step
     return np.array(leaf)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _writer() -> bool:
+    """True on the one rank that writes a save (rank 0 of an initialised
+    process group; the only process otherwise)."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
+def _is_placements(x) -> bool:
+    from torch.distributed.tensor import Placement
+
+    return isinstance(x, tuple) and bool(x) and all(
+        isinstance(p, Placement) for p in x)
+
+
+def _place(tree, shardings, mesh):
+    """``tree``'s tensor leaves distributed on ``mesh`` with the placements
+    of ``shardings`` (a tree of the same structure; a None or non-tuple
+    leaf keeps its value)."""
+    from ..distributed.sharding import distribute_leaf
+
+    if _is_placements(shardings):
+        return distribute_leaf(tree, mesh, shardings)
+    if isinstance(tree, dict):
+        return {k: _place(tree[k], shardings[k], mesh) for k in tree}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_place(getattr(tree, k), getattr(shardings, k),
+                                   mesh) for k in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(t, s, mesh) for t, s in zip(tree,
+                                                              shardings))
+    return tree
 
 
 def _crc32(arr: np.ndarray) -> int:
@@ -194,9 +243,14 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, template, step: Optional[int] = None):
+def restore_checkpoint(directory: str, template, step: Optional[int] = None,
+                       shardings=None, mesh=None):
     """Restore the checkpoint of ``step`` (default: the latest) into
-    ``template``'s structure.  Returns ``(tree, manifest)``."""
+    ``template``'s structure.  Returns ``(tree, manifest)``.  With
+    ``shardings`` (a placements tree matching ``template``, e.g.
+    ``steps.make_shardings``' for params and moments) and ``mesh``, the
+    tensor leaves come back as DTensors on ``mesh``: each rank keeps its
+    own block of the full array (the elastic restore)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -219,7 +273,10 @@ def restore_checkpoint(directory: str, template, step: Optional[int] = None):
                     f"(manifest crc32={want}, file crc32={got}): "
                     "checkpoint is corrupt")
         flat[name] = arr
-    return _unflatten_into(template, flat), manifest
+    tree = _unflatten_into(template, flat)
+    if shardings is not None:
+        tree = _place(tree, shardings, mesh)
+    return tree, manifest
 
 
 def _corrupt_leaf(path: str) -> None:
@@ -287,7 +344,9 @@ class CheckpointManager:
 
     def save(self, step: int, tree, metadata=None):
         self.wait()  # one in-flight save at a time; surfaces prior failure
-        flat = _host_tree(tree)
+        flat = _host_tree(tree)  # on a mesh: every rank gathers
+        if not _writer():
+            return
 
         def _work():
             try:
@@ -325,11 +384,12 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore(self, template, step=None):
+    def restore(self, template, step=None, shardings=None, mesh=None):
         t0 = time.perf_counter()
         try:
             with self.obs.span("ckpt.restore", step=step):
-                out = restore_checkpoint(self.directory, template, step=step)
+                out = restore_checkpoint(self.directory, template, step=step,
+                                         shardings=shardings, mesh=mesh)
         except CheckpointError as e:
             if "checksum mismatch" in str(e):
                 self._m_crc_fail.inc()

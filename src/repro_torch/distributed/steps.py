@@ -1,18 +1,28 @@
-"""Train, prefill and serve step factories on one device, with exact
-microbatch accumulation (twin of ``repro/distributed/steps.py`` without
-the mesh: no ``grad_shardings``, no ``input_specs``).  Each dispatches on
-``cfg.enc_layers``: whisper's encoder-decoder, else the decoder-only
-``lm``."""
+"""Train, prefill and serve step factories with exact microbatch
+accumulation, and their shardings (twin of ``repro/distributed/steps.py``).
+Each step dispatches on ``cfg.enc_layers``: whisper's encoder-decoder,
+else the decoder-only ``lm``.
+
+On one device the steps take plain tensors.  Under a mesh
+(``sharding.use_mesh``) they take DTensors: parameters with
+``make_shardings``' placements (``sharding.distribute``), moments with
+ZeRO-1's, a batch with ``sharding.batch_sharding``'s; the train step
+brings the gradients to ``grad_shardings`` before AdamW.  ``state_axes``
+and ``state_shardings_for`` place decode states (the serving pool), and
+``input_specs`` / ``abstract_train_args`` build a cell's inputs as
+DTensors on the meta device for the dry run."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from ..models import lm, whisper
+from ..models import lm, state_tree, whisper
 from ..models.param import Spec, leaf_paths, tree_map
 from ..optim import adamw
+from . import sharding as shd
 
 
 def with_param_dtype(specs, cfg):
@@ -75,19 +85,19 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
     if microbatches < 1 or B % microbatches:
         raise ValueError(f"batch of {B} rows does not split into "
                          f"{microbatches} microbatches")
+    # under a mesh a DTensor sum: the global count, on every rank
     n_valid = (batch["labels"] >= 0).sum().clamp_min(1).float()
     live = tree_map(lambda x: x.detach().requires_grad_(True), params)
     # every tensor of the batch splits over its rows (tokens, labels, and
     # vis_embed or whisper's frames)
     parts = [dict(zip(batch, xs)) for xs in zip(
-        *(x.chunk(microbatches) for x in batch.values()))]
+        *(_split_rows(x, microbatches) for x in batch.values()))]
     acc_dt = getattr(torch, cfg.grad_accum_dtype)
     # autograd's accumulation is the reference's wherever it adds in the
     # accumulator's dtype
     own_acc = microbatches > 1 and any(
         x.dtype != acc_dt for _, x in leaf_paths(live))
-    acc = tree_map(lambda x: torch.zeros(x.shape, dtype=acc_dt,
-                                         device=x.device), live) \
+    acc = tree_map(lambda x: torch.zeros_like(x, dtype=acc_dt), live) \
         if own_acc else None
     loss = ce = aux = 0.0
     for part in parts:
@@ -114,7 +124,27 @@ def accumulate_grads(params, batch, cfg, microbatches: int = 1):
     return loss, ce, aux / microbatches, grads
 
 
-def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
+def _split_rows(x, parts: int):
+    """``x`` in ``parts`` equal groups of rows.  A batch-sharded DTensor
+    splits each rank's own rows (part i: every rank's i-th block), so the
+    parts stay data-parallel; the loss sums over rows, so any partition of
+    them gives the same gradient."""
+    if parts == 1:
+        return (x,)
+    if not isinstance(x, DTensor):
+        return x.chunk(parts)
+    loc = x.to_local()
+    if loc.shape[0] % parts:
+        return x.chunk(parts)
+    shape = (x.shape[0] // parts,) + tuple(x.shape[1:])
+    stride = shd.contiguous_stride(shape)
+    return tuple(DTensor.from_local(
+        c.contiguous(), x.device_mesh, x.placements, run_check=False,
+        shape=torch.Size(shape), stride=stride) for c in loc.chunk(parts))
+
+
+def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1,
+                    grad_shardings=None):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
     ``params`` is the parameter dict (``model_specs(cfg)``'s dtypes),
@@ -136,15 +166,27 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, *, microbatches: int = 1):
     donates both, so its outputs alias its inputs.  A caller that needs the
     pre-step values copies them first.  The gradients are freed when the
     step returns.
+
+    Under a mesh the arguments are DTensors and ``grad_shardings`` (a
+    placements tree like ``params``, usually ``make_shardings``' first)
+    is where each gradient is brought (reduced) before the update.
     """
 
     def train_step(params, opt_state, batch):
         loss, ce, aux, grads = accumulate_grads(params, batch, cfg,
                                                 microbatches)
+        if grad_shardings is not None:
+            grads = tree_map(
+                lambda g, pl: g if tuple(g.placements) == tuple(pl)
+                else g.redistribute(g.device_mesh, pl),
+                grads, grad_shardings)
         with torch.no_grad():
             params, opt_state, om = adamw.adamw_update(
                 params, grads, opt_state, opt_cfg)
-        metrics = {"loss": loss, "ce": ce, "aux": aux, **om}
+        # on a mesh the scalars are replicated DTensors: plain tensors here
+        metrics = {k: shd.full(v) if torch.is_tensor(v) else v
+                   for k, v in {"loss": loss, "ce": ce, "aux": aux,
+                                **om}.items()}
         return params, opt_state, metrics
 
     return train_step
@@ -198,3 +240,93 @@ def make_serve_step(cfg):
         return logits[:, -1], states
 
     return serve_step
+
+
+# --------------------------------------------------------------------------
+# shardings, and abstract inputs for the dry run
+# --------------------------------------------------------------------------
+
+
+def state_axes(cfg):
+    """Logical axes of every decode-state leaf: the model modules'
+    (``lm.lm_state_axes`` / ``whisper.whisper_state_axes``), which read
+    each op record's ``state_axes``."""
+    if cfg.enc_layers:
+        return whisper.whisper_state_axes(cfg)
+    return lm.lm_state_axes(cfg)
+
+
+def state_shardings_for(cfg, mesh, states):
+    """A placements tree for a decode-state tree (slots over "data",
+    heads over "model", with the divisibility fallback): the list of its
+    leaves' placements, in ``state_tree`` order."""
+    return [shd.placements(shd.spec_for(ax, x.shape, mesh), mesh)
+            for x, ax in zip(state_tree.leaves(states),
+                             state_tree.leaves(state_axes(cfg)))]
+
+
+def _meta_dtensor(shape, dtype, mesh, pl):
+    from torch.distributed.tensor import empty
+
+    return empty(shape, dtype=dtype, device_mesh=mesh, placements=pl)
+
+
+def state_specs(cfg, B, max_len, mesh):
+    """Decode states for ``B`` rows as DTensors with
+    ``state_shardings_for``' placements, allocated by ``torch.distributed
+    .tensor.empty`` on the mesh's device (fake under ``FakeTensorMode``)."""
+    init = whisper.whisper_init_states if cfg.enc_layers else \
+        lm.lm_init_states
+    meta = init(cfg, B, torch.device("meta"), max_len)
+    pls = iter(state_shardings_for(cfg, mesh, meta))
+    return state_tree.tree_map(
+        lambda x: _meta_dtensor(x.shape, x.dtype, mesh, next(pls)), meta)
+
+
+def input_specs(cfg, shape_cfg, mesh):
+    """The step inputs of a dry-run cell as batch-sharded DTensors.
+    train/prefill: ``{tokens, labels?, frames?, vis_embed?}``; decode:
+    ``{"batch": {tokens, positions}, "states": ...}`` (states sized to
+    the cell's ``seq_len``)."""
+    B, n = shape_cfg.global_batch, shape_cfg.seq_len
+
+    def bs(shape, dt=torch.long):
+        return _meta_dtensor(shape, dt, mesh, shd.batch_sharding(mesh, shape))
+
+    if shape_cfg.kind in ("train", "prefill"):
+        batch = {"tokens": bs((B, n))}
+        if shape_cfg.kind == "train":
+            batch["labels"] = bs((B, n))
+        if cfg.enc_layers:
+            batch["frames"] = bs((B, cfg.enc_frames, cfg.d_model),
+                                 torch.bfloat16)
+        if cfg.vis_tokens:
+            batch["vis_embed"] = bs((B, cfg.vis_tokens, cfg.d_model),
+                                    torch.bfloat16)
+        return batch
+    batch = {"tokens": bs((B, 1)), "positions": bs((B, 1))}
+    return {"batch": batch, "states": state_specs(cfg, B, n, mesh)}
+
+
+def make_shardings(cfg, mesh, *, zero1: bool = True):
+    """``(param placements, moment placements)`` trees for this config and
+    mesh (the moments ZeRO-1's unless ``zero1=False``)."""
+    specs = model_specs(cfg)
+    return (shd.param_shardings(specs, mesh),
+            shd.opt_state_shardings(specs, mesh, zero1=zero1))
+
+
+def abstract_train_args(cfg, mesh, *, zero1: bool = True):
+    """``(params, opt_state)`` as DTensors allocated by ``torch.distributed
+    .tensor.empty`` (no values: use under ``FakeTensorMode`` or on the meta
+    device), with ``make_shardings``' placements."""
+    specs = model_specs(cfg)
+    ps, ms = make_shardings(cfg, mesh, zero1=zero1)
+    md = getattr(torch, cfg.moment_dtype)
+    params = tree_map(lambda s, pl: _meta_dtensor(
+        s.shape, getattr(torch, s.dtype), mesh, pl), specs, ps)
+    mu = tree_map(lambda s, pl: _meta_dtensor(s.shape, md, mesh, pl),
+                  specs, ms)
+    nu = tree_map(lambda s, pl: _meta_dtensor(s.shape, md, mesh, pl),
+                  specs, ms)
+    return params, adamw.OptState(step=0, mu=mu, nu=nu)

@@ -99,7 +99,15 @@ def refuse_grad(name: str, tensors) -> None:
     """Raise where autograd would record a raw kernel call: the kernels
     write through raw pointers, so their outputs would carry no graph and
     the leaves behind them would silently get no gradient.  The message
-    names the differentiable entry point of the kernel's operator."""
+    names the differentiable entry point of the kernel's operator.  A
+    DTensor is refused too: its pointer is not its data."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(x, DTensor) for x in tensors):
+        raise TypeError(
+            f"{name}: a DTensor holds no one pointer to launch on; call the "
+            "kernel through distributed.shard_ops.call_sharded, which hands "
+            "it each rank's local block")
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
         op = "ahla_attention" if name.startswith("ahla") else "hla2_attention"
         raise RuntimeError(

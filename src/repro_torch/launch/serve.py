@@ -11,6 +11,11 @@ and on the CPU (plain versions of the kernels) with ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
+Started by ``torchrun`` it serves on a ``("data", "model")`` mesh over all
+its ranks (``launch/mesh.py::mesh_from_env``): ``Engine(mesh=)`` with the
+parameters and slot states as DTensors, every rank producing the same
+streams (``--spec`` and the prefix cache stay single-device for now).
+
 ``--arch`` takes every arch of ``configs/`` (hla-1b, codeqwen1.5-7b,
 qwen2-72b, deepseek-67b, nemotron-4-15b, internvl2-2b, and the MoE
 granite-moe-3b-a800m and qwen3-moe-30b-a3b).  ``--mixer ahla`` swaps the
@@ -69,6 +74,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..distributed import sharding as shd
 from ..distributed.steps import with_param_dtype
 from ..models import lm, seq_op
 from ..models.param import init_params
@@ -77,6 +83,7 @@ from ..runtime.faults import FaultPlan, parse_fault
 from ..serving import Engine, GenRequest, PrefixCache, SamplingConfig
 from ..serving.engine import check_servable
 from ..serving.spec import SpecConfig
+from .mesh import mesh_from_env, mesh_summary
 
 #: default cache key granularity: hla-1b's chunk width in the reference
 #: config (a multiple of the port's 64-token kernel chunk)
@@ -158,10 +165,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced, mixer=args.mixer)
-    device = torch.device(args.device)
+    mesh, device = mesh_from_env(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"[serve] {cfg.name} on {name}")
+    where = name if mesh is None else f"{mesh_summary(mesh)} of {name}"
+    print(f"[serve] {cfg.name} on {where}")
     spec = None if args.spec == "off" else SpecConfig(
         k=args.spec_k, drafter=args.spec, draft_arch=args.draft_arch)
     try:  # the engine's refusal, before any parameter is allocated
@@ -169,8 +177,11 @@ def main(argv=None):
     except ValueError as e:
         raise SystemExit(f"[serve] {cfg.name} ({cfg.mixer}): {e}") from None
     # the decoder-only stack whatever the arch (the reference's CLI)
-    params = init_params(with_param_dtype(lm.lm_specs(cfg), cfg), args.seed,
-                         device)
+    specs = with_param_dtype(lm.lm_specs(cfg), cfg)
+    params = init_params(specs, args.seed, device)
+    if mesh is not None:  # every rank drew the same values: keep its block
+        params = shd.distribute(params, shd.param_shardings(specs, mesh),
+                                mesh)
     engine = Engine(
         cfg, params, slots=args.slots,
         max_len=args.prompt_len + args.gen_len + 8,
@@ -178,7 +189,7 @@ def main(argv=None):
                                 temperature=args.temperature,
                                 top_k=args.top_k, top_p=args.top_p),
         block=args.block, seed=args.seed, device=device, spec=spec,
-        obs=Obs(),
+        obs=Obs(), mesh=mesh,
     )
     del params  # the engine keeps its own compute-dtype copy
     rng = np.random.RandomState(args.seed)

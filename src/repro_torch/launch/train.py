@@ -1,5 +1,4 @@
-"""Training CLI with fault tolerance, on one device (twin of
-``repro/launch/train.py`` without the mesh).
+"""Training CLI with fault tolerance (twin of ``repro/launch/train.py``).
 
 AdamW steps on the deterministic synthetic stream from seeded random
 weights, through ``runtime.ft.FaultTolerantLoop``: exact microbatch
@@ -13,8 +12,16 @@ Runs on the card by default:
     PYTHONPATH=src python -m repro_torch.launch.train --arch hla-1b \\
         --steps 5 --batch 2 --seq 2048 --ckpt-dir ckpt
 
-and on the CPU (plain versions of the kernels) with ``--device cpu``.  A
-failure at step 9 and a run that resumes from the checkpoint of step 7:
+and on the CPU (plain versions of the kernels) with ``--device cpu``.
+Started by ``torchrun`` it trains on a ``("data", "model")`` mesh over
+all its ranks (``launch/mesh.py::mesh_from_env``; NCCL on the cards, gloo
+with ``--device cpu``): parameters and ZeRO-1 moments are DTensors, each
+batch is split over "data", and the HLA kernels run on each rank's own
+(batch, head) rows:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch hla-1b
+
+A failure at step 9 and a run that resumes from the checkpoint of step 7:
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --steps 12 --batch 4 --seq 32 --ckpt-every 4 \\
@@ -51,13 +58,15 @@ import torch
 
 from ..configs import get_config
 from ..data.pipeline import DataConfig, SyntheticStream
-from ..distributed.steps import make_train_step, model_specs
+from ..distributed import sharding as shd
+from ..distributed.steps import make_shardings, make_train_step, model_specs
 from ..models import seq_op
 from ..models.param import init_params
 from ..obs import JsonlSink, Obs, profile_capture, write_metrics
 from ..optim import adamw
 from ..runtime.faults import FaultPlan, FaultSpec
 from ..runtime.ft import FaultTolerantLoop
+from .mesh import mesh_from_env, mesh_summary
 
 
 def main(argv=None):
@@ -99,16 +108,26 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced, mixer=args.mixer)
-    device = torch.device(args.device)
+    mesh, device = mesh_from_env(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"[train] {cfg.name} ({cfg.mixer}) on {name}")
+    where = name if mesh is None else f"{mesh_summary(mesh)} of {name}"
+    print(f"[train] {cfg.name} ({cfg.mixer}) on {where}")
     params = init_params(model_specs(cfg), args.seed, device)
     opt_cfg = adamw.OptConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 5))
     opt_state = adamw.init_opt_state(params, cfg.moment_dtype)
+    pshard = shardings = None
+    if mesh is not None:  # every rank drew the same values: keep its block
+        pshard, mshard = make_shardings(cfg, mesh)
+        params = shd.distribute(params, pshard, mesh)
+        opt_state = adamw.OptState(
+            0, shd.distribute(opt_state.mu, mshard, mesh),
+            shd.distribute(opt_state.nu, mshard, mesh))
+        shardings = (pshard, adamw.OptState(None, mshard, mshard))
     train_step = make_train_step(cfg, opt_cfg,
-                                 microbatches=args.microbatches)
+                                 microbatches=args.microbatches,
+                                 grad_shardings=pshard)
     last_metrics = {}
 
     def step_fn(params, opt_state, batch):
@@ -120,7 +139,12 @@ def main(argv=None):
                                         seed=args.seed, kind=args.data))
 
     def place(batch):
-        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        if mesh is None:
+            return out
+        return {k: shd.distribute_leaf(v, mesh,
+                                       shd.batch_sharding(mesh, v.shape))
+                for k, v in out.items()}
 
     faults = None
     if args.fail_at_step is not None:
@@ -135,8 +159,9 @@ def main(argv=None):
         loop = FaultTolerantLoop(
             step_fn, stream, ckpt_dir, ckpt_every=args.ckpt_every,
             metrics_path=args.metrics, faults=faults, place_batch=place,
-            obs=obs)
-        with profile_capture(args.profile_dir, obs=obs):
+            obs=obs, shardings=shardings, mesh=mesh)
+        with profile_capture(args.profile_dir, obs=obs), \
+                shd.use_mesh(mesh):
             params, opt_state, last = loop.run(params, opt_state, args.steps)
     finally:
         if args.ckpt_dir is None:

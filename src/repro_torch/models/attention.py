@@ -19,13 +19,18 @@ through ``attention_apply(cross_kv=)``: no cache, no RoPE, all keys.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..distributed.shard_ops import call_sharded
+from ..distributed.sharding import constrain, contiguous_stride, local_block
 from . import seq_op
-from .blocks import dense_apply, dense_specs, rope
+from .blocks import dense_apply, dense_specs, rope, split_heads
+from .param import Axes
 
 NEG_INF = -1e30
 
@@ -33,10 +38,13 @@ NEG_INF = -1e30
 def attention_specs(cfg):
     d, H, Hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
-        "wq": dense_specs(d, H * dh, bias=cfg.qkv_bias),
-        "wk": dense_specs(d, Hk * dh, bias=cfg.qkv_bias),
-        "wv": dense_specs(d, Hk * dh, bias=cfg.qkv_bias),
-        "wo": dense_specs(H * dh, d),
+        "wq": dense_specs(d, H * dh, axes=("embed", "q_heads_flat"),
+                          bias=cfg.qkv_bias),
+        "wk": dense_specs(d, Hk * dh, axes=("embed", "kv_heads_flat"),
+                          bias=cfg.qkv_bias),
+        "wv": dense_specs(d, Hk * dh, axes=("embed", "kv_heads_flat"),
+                          bias=cfg.qkv_bias),
+        "wo": dense_specs(H * dh, d, axes=("q_heads_flat", "embed")),
     }
 
 
@@ -110,6 +118,57 @@ def init_kv_cache(B, Hk, max_len, dh, device="cuda") -> KVCache:
     )
 
 
+def _kv_for_heads(q, kv):
+    """``kv (B, Hk, m, dh)`` as ``q (B, H, ...)``'s head split needs it.
+    Under a mesh whose "model" split of the query heads does not fall on
+    KV-head boundaries (64 query heads and 8 KV heads on 16 ranks), each
+    rank takes the KV head of each of its own query heads (``H / Hk``
+    copies, the GQA broadcast), so the attention of a rank's heads stays
+    on that rank; otherwise ``kv`` as it is."""
+    if not isinstance(q, DTensor) or not isinstance(kv, DTensor):
+        return kv
+    H, Hk = q.shape[1], kv.shape[1]
+    mesh = q.device_mesh
+    sizes, coord = list(mesh.shape), mesh.get_coordinate()
+    over = [i for i, pl in enumerate(q.placements) if pl.is_shard(1)]
+    split = math.prod(sizes[i] for i in over)
+    if H == Hk or split == 1 or Hk % split == 0:
+        return kv
+    rep = tuple(Replicate() if pl.is_shard(1) else pl for pl in kv.placements)
+    # each rank's gradient holds its own query heads' share: a sum over the
+    # head split
+    loc = kv.redistribute(mesh, rep).to_local(grad_placements=tuple(
+        Partial() if i in over else p for i, p in enumerate(rep)))
+    first = 0
+    for i in over:
+        first = first * sizes[i] + coord[i]
+    Hl = H // split
+    heads = (torch.arange(Hl, device=loc.device) + first * Hl) // (H // Hk)
+    pl = tuple(Shard(1) if i in over else p for i, p in enumerate(rep))
+    shape = (kv.shape[0], H) + tuple(kv.shape[2:])
+    return DTensor.from_local(loc[:, heads], mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def _write_cache(buf, idx, new):
+    """``buf[:, :, idx] = new`` in place (``index_copy_`` along time).  On
+    a mesh each rank writes its own block: ``new`` is brought to the
+    cache's placements (batch and KV heads; time is never split) and the
+    copy is local, which needs no DTensor rule for ``index_copy_``."""
+    new = new.to(buf.dtype)
+    if not isinstance(buf, DTensor):
+        buf.index_copy_(2, idx, new)
+        return
+    if isinstance(new, DTensor):
+        new = new.redistribute(buf.device_mesh, buf.placements).to_local()
+    else:
+        new = local_block(new, buf.device_mesh, buf.placements)
+    if isinstance(idx, DTensor):
+        idx = idx.full_tensor()
+    buf.to_local().index_copy_(2, idx, new)
+
+
 def attention_apply(p, x, cfg, *, positions=None,
                     cache: Optional[KVCache] = None, cross_kv=None,
                     causal: bool = True, use_rope: bool = True):
@@ -124,22 +183,28 @@ def attention_apply(p, x, cfg, *, positions=None,
     cache)`` (``cache`` None without one)."""
     B, n, _ = x.shape
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense_apply(p["wq"], x).reshape(B, n, H, dh)
+    q = split_heads(dense_apply(p["wq"], x), H, dh)
     if cross_kv is not None:
         kc, vc = cross_kv
-        out = flash_attention(q.transpose(1, 2), kc, vc, causal=False)
+        q = q.transpose(1, 2)
+        out = call_sharded(functools.partial(flash_attention, causal=False),
+                           q, _kv_for_heads(q, kc), _kv_for_heads(q, vc))
         out = out.transpose(1, 2).reshape(B, n, H * dh)
+        out = constrain(out, ("batch", None, "q_heads_flat"))
         return dense_apply(p["wo"], out), None
     if positions is None:
         positions = torch.arange(n, device=x.device)[None]
-    k = dense_apply(p["wk"], x).reshape(B, n, Hk, dh)
-    v = dense_apply(p["wv"], x).reshape(B, n, Hk, dh)
+    k = split_heads(dense_apply(p["wk"], x), Hk, dh)
+    v = split_heads(dense_apply(p["wv"], x), Hk, dh)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    q = constrain(q.transpose(1, 2), ("batch", "q_heads", None, None))
+    k = constrain(k.transpose(1, 2), ("batch", "kv_heads", None, None))
+    v = constrain(v.transpose(1, 2), ("batch", "kv_heads", None, None))
     if cache is None:
-        out = flash_attention(q, k, v, causal=causal)
+        out = call_sharded(functools.partial(flash_attention, causal=causal),
+                           q, _kv_for_heads(q, k), _kv_for_heads(q, v))
     else:
         max_len = cache.k.shape[2]
         if n > max_len:
@@ -149,13 +214,17 @@ def attention_apply(p, x, cfg, *, positions=None,
         # block fits
         start = cache.length.clamp(0, max_len - n).long()
         idx = start + torch.arange(n, device=x.device)
-        cache.k.index_copy_(2, idx, k.to(cache.k.dtype))
-        cache.v.index_copy_(2, idx, v.to(cache.v.dtype))
+        _write_cache(cache.k, idx, k)
+        _write_cache(cache.v, idx, v)
         q_offset = cache.length.clone()
         cache.length.add_(n)
-        out = flash_attention(q, cache.k, cache.v, causal=causal,
-                              q_offset=q_offset, kv_len=cache.length)
+        out = call_sharded(
+            lambda q_, k_, v_, off, n_: flash_attention(
+                q_, k_, v_, causal=causal, q_offset=off, kv_len=n_),
+            q, _kv_for_heads(q, cache.k), _kv_for_heads(q, cache.v),
+            q_offset, cache.length)
     out = out.transpose(1, 2).reshape(B, n, H * dh)
+    out = constrain(out, ("batch", None, "q_heads_flat"))
     return dense_apply(p["wo"], out), cache
 
 
@@ -172,6 +241,15 @@ def _attn_forward(p, x, cfg, *, state=None, want_state=False,
     return attention_apply(p, x, cfg, positions=positions, cache=state)
 
 
+def kv_cache_axes() -> KVCache:
+    """Logical axes of the cache's leaves: batch over data, KV heads over
+    model, time and features replicated; the shared ``length`` scalar
+    replicated."""
+    return KVCache(k=Axes(("batch", "kv_heads", None, None)),
+                   v=Axes(("batch", "kv_heads", None, None)),
+                   length=Axes(()))
+
+
 def _attn_init_state(cfg, B, device, max_len=0):
     return init_kv_cache(B, cfg.n_kv_heads, max_len, cfg.head_dim,
                          device=device)
@@ -182,6 +260,7 @@ seq_op.register_op(seq_op.SequenceOp(
     specs=attention_specs,
     forward=_attn_forward,
     init_state=_attn_init_state,
+    state_axes=lambda cfg: kv_cache_axes(),
     streaming=False,  # the cache grows with the context and its one
     #   ``length`` is shared by every row, so the engine's per-slot
     #   continuous batching cannot admit it
@@ -193,7 +272,8 @@ seq_op.register_op(seq_op.SequenceOp(
 
 def cross_kv_specs(cfg):
     d, Hk, dh = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
-    return {"wk": dense_specs(d, Hk * dh), "wv": dense_specs(d, Hk * dh)}
+    return {"wk": dense_specs(d, Hk * dh, axes=("embed", "kv_heads_flat")),
+            "wv": dense_specs(d, Hk * dh, axes=("embed", "kv_heads_flat"))}
 
 
 def cross_kv_apply(p, enc_out, cfg):

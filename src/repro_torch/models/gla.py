@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from . import seq_op
 from .blocks import dense_apply, dense_specs
-from .param import Spec
+from .param import Axes, Spec
 
 LOG_A_MIN = -2.5  # per-token floor: a_t >= e^-2.5 ~ 0.08 already "forget"
 GLA_CHUNK = 32  # fixed: bounds |cumsum(log a)| for the exp factorization
@@ -58,16 +58,16 @@ def gla_specs(cfg):
     d, H, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     lora = max(16, d // 16)
     return {
-        "wq": dense_specs(d, H * dh),
-        "wk": dense_specs(d, H * dh),
-        "wv": dense_specs(d, H * dh),
+        "wq": dense_specs(d, H * dh, axes=("embed", "q_heads_flat")),
+        "wk": dense_specs(d, H * dh, axes=("embed", "q_heads_flat")),
+        "wv": dense_specs(d, H * dh, axes=("embed", "q_heads_flat")),
         # low-rank data-dependent gate; a0 ~ 4 => a ~ sigmoid(4)^(1/16)
         # ~ 0.9989 per token at init (slow forgetting)
-        "wa_a": dense_specs(d, lora),
-        "wa_b": dense_specs(lora, H * dh),
-        "a0": Spec((H * dh,), init="constant", const=4.0),
-        "out_scale": Spec((H, dh), init="ones"),
-        "wo": dense_specs(H * dh, d),
+        "wa_a": dense_specs(d, lora, axes=("embed", None)),
+        "wa_b": dense_specs(lora, H * dh, axes=(None, "q_heads_flat")),
+        "a0": Spec((H * dh,), ("q_heads_flat",), init="constant", const=4.0),
+        "out_scale": Spec((H, dh), ("q_heads", "head_dim"), init="ones"),
+        "wo": dense_specs(H * dh, d, axes=("q_heads_flat", "embed")),
     }
 
 
@@ -198,6 +198,7 @@ seq_op.register_op(seq_op.SequenceOp(
     step=_gla_step,
     cost_model=_gla_cost_model,
     init_state=_gla_init_state,
+    state_axes=lambda cfg: GLAState(S=Axes(("batch", "q_heads", None, None))),
     streaming=True,
     spec_decodable=True,
 ))

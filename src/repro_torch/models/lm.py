@@ -33,23 +33,29 @@ the cross-entropy, as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import constrain
 from . import moe as moe_mod
 from . import seq_op
 from .blocks import (
     embed_apply,
     embed_specs,
+    fsdp_gather,
+    gather_middle,
     mlp_apply,
+    regather_grad,
     mlp_specs,
     rmsnorm_apply,
     rmsnorm_specs,
     unembed_apply,
 )
-from .param import Spec
+from .param import Axes, Spec
 from .state_tree import tree_map
 
 MODES = ("train", "prefill", "decode")
@@ -94,7 +100,8 @@ def stack_layout(cfg):
 
 def _stack(tree, L: int):
     if isinstance(tree, Spec):
-        return dataclasses.replace(tree, shape=(L,) + tree.shape)
+        return dataclasses.replace(tree, shape=(L,) + tree.shape,
+                                   axes=("layers",) + tree.axes)
     return {k: _stack(v, L) for k, v in tree.items()}
 
 
@@ -109,7 +116,8 @@ def lm_specs(cfg):
         specs["layers"] = _stack(layer_specs(cfg, op, moe), units)
     specs["final_norm"] = rmsnorm_specs(cfg.d_model)
     if not cfg.tie_embeddings:
-        specs["unembed"] = {"kernel": Spec((cfg.d_model, cfg.vocab))}
+        specs["unembed"] = {
+            "kernel": Spec((cfg.d_model, cfg.vocab), ("embed", "vocab"))}
     return specs
 
 
@@ -166,6 +174,28 @@ def lm_init_states(cfg, B: int, device, max_len: int = 0):
     return stacked(layout[0][1])
 
 
+def layer_state_axes(cfg, op: seq_op.SequenceOp):
+    """Logical axes matching one layer's state tree (the op record's;
+    ``lm_state_axes`` adds the ``layers`` stacking dim)."""
+    return op.state_axes(cfg)
+
+
+def _stack_axes(tree):
+    return tree_map(lambda ax: Axes(("layers",) + tuple(ax)), tree)
+
+
+def lm_state_axes(cfg):
+    """Tree of ``Axes`` matching ``lm_init_states`` leaf for leaf: the one
+    source of the decode states' sharding (``distributed.steps``
+    resolves it against a mesh).  A hybrid stack's group axis is
+    ``layers`` too, as in the reference."""
+    layout, _ = stack_layout(cfg)
+    if cfg.group_size:
+        return {key: _stack_axes(layer_state_axes(cfg, op))
+                for key, op, _ in layout}
+    return _stack_axes(layer_state_axes(cfg, layout[0][1]))
+
+
 def _layer(tree, l: int):
     if isinstance(tree, dict):
         return {k: _layer(v, l) for k, v in tree.items()}
@@ -200,6 +230,7 @@ def _unit(p, x, cfg, layout, mixes):
     checkpoint as an output.  Returns ``(x, [state per position],
     aux)``, ``aux`` None when no position has an MoE FFN."""
     states, aux = [], None
+    x = constrain(x, ("batch", "seq", "embed"))
     for (key, op, use_moe), mix in zip(layout, mixes):
         x, st, a = _block(p if key is None else p[key], x, cfg, op, use_moe,
                           mix)
@@ -290,7 +321,8 @@ def _trunk(params, tokens, cfg, states, mode, positions=None,
 def _unembed(params, x, cfg):
     if cfg.tie_embeddings:
         return unembed_apply(params["embed"], x)
-    return x @ params["unembed"]["kernel"].to(x.dtype)
+    return regather_grad(gather_middle(x) @ fsdp_gather(
+        params["unembed"]["kernel"].to(x.dtype)))
 
 
 def lm_apply(params, tokens, cfg, *, states=None, positions=None,
@@ -362,8 +394,84 @@ def next_token_ce(logits, labels, denom=None):
     (B, n)``, summed over the labels >= 0 and divided by ``denom``
     (default: their count)."""
     mask = labels >= 0
-    nll = F.cross_entropy(logits.float().flatten(0, 1),
-                          labels.clamp_min(0).flatten().long(),
-                          reduction="none")
+    if _vocab_split(logits):
+        nll = _vocab_parallel_nll(logits.float(), labels.clamp_min(0))
+    else:
+        nll = F.cross_entropy(logits.float().flatten(0, 1),
+                              labels.clamp_min(0).flatten().long(),
+                              reduction="none")
     d = mask.sum().clamp_min(1).float() if denom is None else denom
     return (nll * mask.flatten()).sum() / d
+
+
+def _vocab_split(logits) -> bool:
+    """True for a DTensor whose vocab dim is split over more than one
+    rank."""
+    return isinstance(logits, DTensor) and any(
+        pl.is_shard(logits.ndim - 1) and size > 1
+        for pl, size in zip(logits.placements, logits.device_mesh.shape))
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Megatron's vocab-parallel cross-entropy on one rank's block: local
+    logits ``(rows, V_local)`` fp32 whose columns start at ``first``, the
+    rows' targets, and the process group the vocab is split over.  The max,
+    the sum of exponentials and the target's logit are all-reduced over
+    that group (three ``(rows,)`` vectors); the backward is local
+    (``softmax - onehot``)."""
+
+    @staticmethod
+    def forward(ctx, z, lab, first, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        def reduce(t, op):
+            return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+        m = reduce(z.amax(-1), "max")
+        e = (z - m[:, None]).exp()
+        s = reduce(e.sum(-1), "sum")
+        col = lab - first
+        hit = (col >= 0) & (col < z.shape[-1])
+        zt = z.gather(-1, col.clamp(0, z.shape[-1] - 1)[:, None])[:, 0]
+        zt = reduce(torch.where(hit, zt, torch.zeros_like(zt)), "sum")
+        ctx.save_for_backward(e, s, col, hit)
+        return s.log() + m - zt
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, col, hit = ctx.saved_tensors
+        grad = e / s[:, None]
+        onehot = torch.zeros_like(grad).scatter_(
+            -1, col.clamp(0, grad.shape[-1] - 1)[:, None],
+            hit[:, None].to(grad.dtype))
+        return (grad - onehot) * g[:, None], None, None, None
+
+
+def _vocab_parallel_nll(logits, labels):
+    """Next-token NLL ``(B * n,)`` of vocab-sharded logits without
+    gathering the vocab: each rank works on its own block of rows and
+    vocab (``_VocabParallelNLL``); the result keeps the logits' row
+    split."""
+    from ..distributed.sharding import contiguous_stride, local_block
+
+    mesh = logits.device_mesh
+    vdim = logits.ndim - 1
+    over = [i for i, pl in enumerate(logits.placements)
+            if pl.is_shard(vdim)]
+    want = tuple(Shard(vdim) if i == over[0] else
+                 Shard(0) if pl.is_shard(0) else Replicate()
+                 for i, pl in enumerate(logits.placements))
+    if want != tuple(logits.placements):
+        logits = logits.redistribute(mesh, want)
+    rows = tuple(Shard(0) if pl.is_shard(0) else Replicate() for pl in want)
+    lab = labels.redistribute(mesh, rows).to_local() \
+        if isinstance(labels, DTensor) else local_block(labels, mesh, rows)
+    zl = logits.to_local()
+    vloc = zl.shape[-1]
+    first = mesh.get_coordinate()[over[0]] * vloc
+    nll = _VocabParallelNLL.apply(zl.flatten(0, -2), lab.flatten().long(),
+                                  first, mesh.get_group(over[0]))
+    shape = (math.prod(logits.shape[:-1]),)
+    return DTensor.from_local(nll, mesh, rows, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))

@@ -17,7 +17,11 @@ batched decode-step launch that updates the state in place
 (``hla2_decode_step``, ``ahla_decode_step``).  With ``cfg.hla.impl ==
 "scan"`` their full-sequence path is the paper's token-level associative
 scan in plain torch (``hla2_scan``, ``ahla_scan``); decode stays the
-kernel, as in the reference.
+kernel, as in the reference.  Every kernel call goes through
+``distributed.shard_ops.call_sharded``: under a mesh (``sharding.use_mesh``)
+each rank runs the kernel on its own (batch, head) row block, and q, k, v
+and the output are constrained to their logical axes, as in the
+reference; off-mesh it is the plain call.
 
 ``hla3`` (the exact third order), ``hla3_paper`` (Algorithm 4's chunk
 path, at gamma = 1 whatever ``cfg.hla.decay`` says: its ``decay_a`` goes
@@ -34,11 +38,16 @@ that reason).
 
 from __future__ import annotations
 
+import functools
+import types
+
 import torch
 
-from ..core.ahla import ahla_init_state, ahla_scan
-from ..core.hla2 import hla2_init_state, hla2_scan
+from ..core.ahla import AHLAState, ahla_init_state, ahla_scan
+from ..core.hla2 import HLA2State, hla2_init_state, hla2_scan
 from ..core.hla3 import (
+    HLA3ChunkState,
+    HLA3ExactState,
     hla3_chunk_init_state,
     hla3_exact_chunkwise,
     hla3_exact_init_state,
@@ -47,14 +56,18 @@ from ..core.hla3 import (
     hla3_paper_chunkwise,
 )
 from ..core.linear_attn import (
+    LinAttnState,
     linattn_chunkwise,
     linattn_init_state,
     linattn_step,
 )
+from ..distributed import shard_ops
+from ..distributed.sharding import constrain
 from ..kernels import ops as kops
+from ..obs import costs
 from . import seq_op
-from .blocks import dense_apply, dense_specs
-from .param import Spec
+from .blocks import dense_apply, dense_specs, split_heads
+from .param import Axes, Spec
 from .state_tree import leaves
 
 OUT_NORM_EPS = 1e-6
@@ -64,14 +77,17 @@ HLA_EPS = 1e-6
 def mixer_specs(cfg):
     d, H, Hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
-        "wq": dense_specs(d, H * dh, bias=cfg.qkv_bias),
-        "wk": dense_specs(d, Hk * dh, bias=cfg.qkv_bias),
-        "wv": dense_specs(d, Hk * dh, bias=cfg.qkv_bias),
-        "wo": dense_specs(H * dh, d),
-        "out_scale": Spec((H, dh), init="ones"),
+        "wq": dense_specs(d, H * dh, axes=("embed", "q_heads_flat"),
+                          bias=cfg.qkv_bias),
+        "wk": dense_specs(d, Hk * dh, axes=("embed", "kv_heads_flat"),
+                          bias=cfg.qkv_bias),
+        "wv": dense_specs(d, Hk * dh, axes=("embed", "kv_heads_flat"),
+                          bias=cfg.qkv_bias),
+        "wo": dense_specs(H * dh, d, axes=("q_heads_flat", "embed")),
+        "out_scale": Spec((H, dh), ("q_heads", "head_dim"), init="ones"),
     }
     if cfg.hla.decay == "learned":
-        s["decay_a"] = Spec((H,), init="constant", const=3.0)
+        s["decay_a"] = Spec((H,), ("q_heads",), init="constant", const=3.0)
     return s
 
 
@@ -89,14 +105,15 @@ def _gamma(p, cfg, B, device):
 def _project(p, x, cfg):
     B, n, _ = x.shape
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense_apply(p["wq"], x).reshape(B, n, H, dh).transpose(1, 2)
-    k = dense_apply(p["wk"], x).reshape(B, n, Hk, dh).transpose(1, 2)
-    v = dense_apply(p["wv"], x).reshape(B, n, Hk, dh).transpose(1, 2)
+    q = split_heads(dense_apply(p["wq"], x), H, dh).transpose(1, 2)
+    k = split_heads(dense_apply(p["wk"], x), Hk, dh).transpose(1, 2)
+    v = split_heads(dense_apply(p["wv"], x), Hk, dh).transpose(1, 2)
     q = q * dh**-0.5
     if Hk != H:  # GQA: broadcast KV heads to query heads
         k = k.repeat_interleave(H // Hk, dim=1)
         v = v.repeat_interleave(H // Hk, dim=1)
-    return q, k, v
+    spec = ("batch", "q_heads", None, None)
+    return constrain(q, spec), constrain(k, spec), constrain(v, spec)
 
 
 def _out_norm(p, o):
@@ -119,6 +136,7 @@ def _sublayer_forward(core_fwd):
                          want_state=want_state or state is not None)
         o = _out_norm(p, o.to(x.dtype))
         o = o.transpose(1, 2).reshape(B, n, cfg.n_heads * cfg.head_dim)
+        o = constrain(o, ("batch", None, "q_heads_flat"))
         return dense_apply(p["wo"], o), st
 
     return forward
@@ -132,8 +150,8 @@ def _sublayer_step(core_step):
         q, k, v = _project(p, x_t, cfg)
         new, o = core_step(state, q[:, :, 0], k[:, :, 0], v[:, :, 0],
                            _gamma(p, cfg, B, x_t.device), cfg.hla)
-        if new is not state:  # a functional core step: write its result
-            for dst, src in zip(leaves(state), leaves(new)):
+        for dst, src in zip(leaves(state), leaves(new)):
+            if src is not dst:  # a functional core step: write its result
                 dst.copy_(src)
         o = _out_norm(p, o[:, :, None, :].to(x_t.dtype))
         o = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.head_dim)
@@ -142,19 +160,93 @@ def _sublayer_step(core_step):
     return step
 
 
+# -- the kernel calls: each one goes through ``shard_ops.call_sharded``, so
+# under a mesh every rank runs the kernel on its own (batch, head) row
+# block; off-mesh it is the plain call.  The ``fake`` stand-ins give the
+# dry run (fake tensors) the kernels' output shapes and FLOPs.
+
+
+def _row_flops(fwd, d, c):
+    """FLOPs of one (batch, head) row and token: ``obs.costs``' per-head
+    state math (``fwd(cfg, c, n)``, d = dv) on a one-head stand-in
+    config."""
+    return fwd(types.SimpleNamespace(n_heads=1, head_dim=d), c, None)
+
+
+class _ShapeOnly(torch.autograd.Function):
+    """The training call's shapes under fake tensors: ``o (B, H, n, dv)``
+    and gradients for its inputs; counts the forward's FLOPs, and twice
+    them for the backward (``obs.costs``' ``train_bwd`` scale)."""
+
+    @staticmethod
+    def forward(ctx, name, flops, q, k, v, gamma):
+        ctx.meta = (name, flops, [None if x is None else (x.shape, x.dtype)
+                                  for x in (q, k, v, gamma)])
+        shard_ops.count_flops(name, flops)
+        return v.new_empty(q.shape[:3] + v.shape[3:])
+
+    @staticmethod
+    def backward(ctx, do):
+        name, flops, metas = ctx.meta
+        shard_ops.count_flops(name.replace("fwd", "bwd"), 2 * flops)
+        return (None, None) + tuple(
+            None if m is None else do.new_empty(m[0], dtype=m[1])
+            for m in metas)
+
+
+def _fake_attention(name, fwd, hc):
+    def fake(q, k, v, gamma):
+        B, H, n, d = q.shape
+        flops = B * H * n * _row_flops(fwd, d, hc.chunk)
+        return _ShapeOnly.apply(name, flops, q, k, v, gamma)
+
+    return fake
+
+
+def _fake_prefill(name, fwd, init, hc):
+    def fake(q, k, v, gamma, state):
+        B, H, n, d = q.shape
+        dv = v.shape[-1]
+        shard_ops.count_flops(name, B * H * n * _row_flops(fwd, d, hc.chunk))
+        st = init((B, H), d, dv, torch.float32, q.device)
+        return v.new_empty((B, H, n, dv)), st
+
+    return fake
+
+
+def _fake_step(name, dec):
+    def fake(state, q1, k1, v1, gamma):
+        B, H, d = q1.shape
+        dv = v1.shape[-1]
+        shard_ops.count_flops(name, B * H * dec(
+            types.SimpleNamespace(n_heads=1, head_dim=d), None))
+        return state, v1.new_empty((B, H, dv))
+
+    return fake
+
+
 def _hla2_fwd(q, k, v, gamma, hc, *, state, want_state):
     kw = dict(normalize=hc.normalize, eps=HLA_EPS, lam=hc.lam)
     if hc.impl == "scan":  # the paper's token-level associative scan
         return hla2_scan(q, k, v, gamma, state=state, **kw)
     if want_state:
-        return kops.hla2_prefill(q, k, v, gamma, state=state, **kw)
-    return kops.hla2_attention(q, k, v, gamma, **kw), None
+        return shard_ops.call_sharded(
+            lambda q_, k_, v_, g_, s_: kops.hla2_prefill(
+                q_, k_, v_, g_, state=s_, **kw),
+            q, k, v, gamma, state,
+            fake=_fake_prefill("hla2_chunk_fwd", costs._fwd_hla2,
+                               hla2_init_state, hc))
+    return shard_ops.call_sharded(
+        functools.partial(kops.hla2_attention, **kw), q, k, v, gamma,
+        fake=_fake_attention("hla2_chunk_fwd", costs._fwd_hla2, hc)), None
 
 
 def _hla2_step(state, q1, k1, v1, gamma, hc):
-    return kops.hla2_decode_step(state, q1, k1, v1, gamma,
-                                 normalize=hc.normalize, eps=HLA_EPS,
-                                 lam=hc.lam)
+    return shard_ops.call_sharded(
+        functools.partial(kops.hla2_decode_step, normalize=hc.normalize,
+                          eps=HLA_EPS, lam=hc.lam),
+        state, q1, k1, v1, gamma,
+        fake=_fake_step("hla2_step", costs._dec_hla2))
 
 
 def _ahla_fwd(q, k, v, gamma, hc, *, state, want_state):
@@ -162,13 +254,23 @@ def _ahla_fwd(q, k, v, gamma, hc, *, state, want_state):
     if hc.impl == "scan":
         return ahla_scan(q, k, v, gamma, state=state, **kw)
     if want_state:
-        return kops.ahla_prefill(q, k, v, gamma, state=state, **kw)
-    return kops.ahla_attention(q, k, v, gamma, **kw), None
+        return shard_ops.call_sharded(
+            lambda q_, k_, v_, g_, s_: kops.ahla_prefill(
+                q_, k_, v_, g_, state=s_, **kw),
+            q, k, v, gamma, state,
+            fake=_fake_prefill("ahla_chunk_fwd", costs._fwd_ahla,
+                               ahla_init_state, hc))
+    return shard_ops.call_sharded(
+        functools.partial(kops.ahla_attention, **kw), q, k, v, gamma,
+        fake=_fake_attention("ahla_chunk_fwd", costs._fwd_ahla, hc)), None
 
 
 def _ahla_step(state, q1, k1, v1, gamma, hc):
-    return kops.ahla_decode_step(state, q1, k1, v1, gamma,
-                                 normalize=hc.normalize, eps=HLA_EPS)
+    return shard_ops.call_sharded(
+        functools.partial(kops.ahla_decode_step, normalize=hc.normalize,
+                          eps=HLA_EPS),
+        state, q1, k1, v1, gamma,
+        fake=_fake_step("ahla_step", costs._dec_ahla))
 
 
 def _hla3_fwd(q, k, v, gamma, hc, *, state, want_state):
@@ -204,7 +306,21 @@ def _linattn_step(state, q1, k1, v1, gamma, hc):
                         eps=HLA_EPS)
 
 
-def _register(name, core_fwd, core_step, core_init, fused=False):
+# Every HLA-family decode-state leaf is a (batch, heads, ...feature) row
+# tensor, declared field by field (the reference's state axes): heads
+# shard on "model" as the kernels' row grid does.
+_ROW_MAT = Axes(("batch", "q_heads", None, None))
+_ROW_VEC = Axes(("batch", "q_heads", None))
+_HLA2_AXES = HLA2State(S=_ROW_MAT, C=_ROW_MAT, m=_ROW_VEC, G=_ROW_MAT,
+                       h=_ROW_VEC)
+_LINATTN_AXES = LinAttnState(P=_ROW_MAT, m=_ROW_VEC)
+# the fused records' leaf ranks: (B, H, d, d) / (B, H, d, dv) and (B, H, d)
+_HLA2_STATE_NDIMS = HLA2State(4, 4, 3, 4, 3)
+_AHLA_STATE_NDIMS = AHLAState(4, 4, 3, 4, 3)
+
+
+def _register(name, core_fwd, core_step, core_init, axes, ndims=None,
+              fused=False):
     def init_state(cfg, B, device, max_len=0):
         del max_len  # a streaming state does not grow with the context
         dh = cfg.head_dim
@@ -213,17 +329,27 @@ def _register(name, core_fwd, core_step, core_init, fused=False):
     seq_op.register_op(seq_op.SequenceOp(
         name=name, specs=mixer_specs, forward=_sublayer_forward(core_fwd),
         step=_sublayer_step(core_step), init_state=init_state,
+        state_axes=lambda cfg, _axes=axes: _axes,
+        state_ndims=None if ndims is None else (lambda cfg, _n=ndims: _n),
         streaming=True, has_fused_kernels=fused, spec_decodable=True,
         param_key="mixer",
     ))
 
 
-_register("hla2", _hla2_fwd, _hla2_step, hla2_init_state, fused=True)
-_register("ahla", _ahla_fwd, _ahla_step, ahla_init_state, fused=True)
-_register("hla3", _hla3_fwd, _hla3_step, hla3_exact_init_state)
+_register("hla2", _hla2_fwd, _hla2_step, hla2_init_state, _HLA2_AXES,
+          ndims=_HLA2_STATE_NDIMS, fused=True)
+_register("ahla", _ahla_fwd, _ahla_step, ahla_init_state,
+          AHLAState(R=_ROW_MAT, P=_ROW_MAT, m=_ROW_VEC, E=_ROW_MAT,
+                    n=_ROW_VEC),
+          ndims=_AHLA_STATE_NDIMS, fused=True)
+_register("hla3", _hla3_fwd, _hla3_step, hla3_exact_init_state,
+          HLA3ExactState(inner=_LINATTN_AXES, outer=_HLA2_AXES))
 # the chunk-state layout: prefill (hla3_paper_chunkwise) and decode
 # (hla3_paper_chunk_step) share it; Algorithm 3's 10-field state serves
 # only the serial path
 _register("hla3_paper", _hla3_paper_fwd, _hla3_paper_step,
-          hla3_chunk_init_state)
-_register("linattn", _linattn_fwd, _linattn_step, linattn_init_state)
+          hla3_chunk_init_state,
+          HLA3ChunkState(SK=_ROW_MAT, SQ=_ROW_MAT, P=_ROW_MAT, m=_ROW_VEC,
+                         F=_ROW_MAT, eta=_ROW_VEC))
+_register("linattn", _linattn_fwd, _linattn_step, linattn_init_state,
+          _LINATTN_AXES)

@@ -37,13 +37,17 @@ def moe_specs(cfg):
     E, ff = mc.n_experts, mc.d_ff
     if cfg.mlp == "swiglu":
         expert = {
-            "wi_gate": Spec((E, d, ff)),
-            "wi_up": Spec((E, d, ff)),
-            "wo": Spec((E, ff, d)),
+            "wi_gate": Spec((E, d, ff), ("experts", "embed", "expert_ff")),
+            "wi_up": Spec((E, d, ff), ("experts", "embed", "expert_ff")),
+            "wo": Spec((E, ff, d), ("experts", "expert_ff", "embed")),
         }
     else:
-        expert = {"wi": Spec((E, d, ff)), "wo": Spec((E, ff, d))}
-    return {"router": dense_specs(d, E), **expert}
+        expert = {
+            "wi": Spec((E, d, ff), ("experts", "embed", "expert_ff")),
+            "wo": Spec((E, ff, d), ("experts", "expert_ff", "embed")),
+        }
+    return {"router": dense_specs(d, E, axes=("embed", "experts")),
+            **expert}
 
 
 def _expert_ffn(p, x, act):

@@ -2,6 +2,10 @@
 
 Same key paths and layouts as ``repro/models/param.py``: dense kernels are
 ``(d_in, d_out)``, layer parameters carry a leading stacked ``layers`` axis.
+Every ``Spec`` names the logical axis of each of its dims (``"vocab"``,
+``"embed"``, ``"q_heads"``, ``"ff"``, ``"layers"``, ... or None for a
+replicated dim), the reference's vocabulary: ``distributed/sharding.py``
+resolves them against a device mesh.
 The init scheme is the reference's: fan-in truncated normal in [-2, 2]
 (the fan-in is the product of all but the last dim, the stacked axis
 included), ``embed`` normal at 0.02, ``decay_a`` constant 3.0.  A leaf is
@@ -25,10 +29,33 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Spec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # one logical axis name per dim
     init: str = "normal"  # normal | ones | zeros | embed | constant
     scale: Optional[float] = None  # override; default fan-in scaling
     const: float = 0.0  # for init == "constant"
     dtype: str = "float32"  # storage dtype
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in length")
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, Spec)
+
+
+class Axes(tuple):
+    """A tuple of logical axis names that is one leaf of a state-axes tree
+    (``state_tree`` walks plain tuples, so the ``*_state_axes`` trees use
+    this subclass for their leaves).  ``sharding.spec_for`` takes it as
+    any tuple."""
+
+    __slots__ = ()
+
+
+def is_axes(x) -> bool:
+    return isinstance(x, Axes)
 
 
 def leaf_paths(tree, prefix=()):

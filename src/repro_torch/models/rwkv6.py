@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from . import seq_op
 from .blocks import dense_apply, dense_specs, layernorm_apply, layernorm_specs
-from .param import Spec
+from .param import Axes, Spec
 
 LOGW_MIN = -2.5  # per-token log-decay floor (see the module docstring)
 RWKV_CHUNK = 32  # |lc| <= w * |LOGW_MIN| = 80 < log(fp32 max) ~ 88
@@ -49,7 +49,7 @@ def rwkv6_specs(cfg):
     lora = max(32, d // 64)
 
     def mu():
-        return Spec((d,), init="constant", const=0.5)
+        return Spec((d,), ("embed",), init="constant", const=0.5)
 
     return {
         "ln1": layernorm_specs(d),
@@ -57,23 +57,24 @@ def rwkv6_specs(cfg):
         "tm": {  # time mix
             "mu_r": mu(), "mu_k": mu(), "mu_v": mu(), "mu_g": mu(),
             "mu_w": mu(),
-            "wr": dense_specs(d, d),
-            "wk": dense_specs(d, d),
-            "wv": dense_specs(d, d),
-            "wg": dense_specs(d, d),
-            "w_lora_a": dense_specs(d, lora),
-            "w_lora_b": dense_specs(lora, d),
-            "w0": Spec((d,), init="constant", const=-5.0),
-            "u": Spec((H, dh), init="normal", scale=0.5),
-            "gn_scale": Spec((H, dh), init="ones"),
-            "gn_bias": Spec((H, dh), init="zeros"),
-            "wo": dense_specs(d, d),
+            "wr": dense_specs(d, d, axes=("embed", "q_heads_flat")),
+            "wk": dense_specs(d, d, axes=("embed", "q_heads_flat")),
+            "wv": dense_specs(d, d, axes=("embed", "q_heads_flat")),
+            "wg": dense_specs(d, d, axes=("embed", "q_heads_flat")),
+            "w_lora_a": dense_specs(d, lora, axes=("embed", None)),
+            "w_lora_b": dense_specs(lora, d, axes=(None, "q_heads_flat")),
+            "w0": Spec((d,), ("q_heads_flat",), init="constant", const=-5.0),
+            "u": Spec((H, dh), ("q_heads", "head_dim"), init="normal",
+                      scale=0.5),
+            "gn_scale": Spec((H, dh), ("q_heads", "head_dim"), init="ones"),
+            "gn_bias": Spec((H, dh), ("q_heads", "head_dim"), init="zeros"),
+            "wo": dense_specs(d, d, axes=("q_heads_flat", "embed")),
         },
         "cm": {  # channel mix
             "mu_k": mu(), "mu_r": mu(),
-            "wk": dense_specs(d, cfg.d_ff),
-            "wv": dense_specs(cfg.d_ff, d),
-            "wr": dense_specs(d, d),
+            "wk": dense_specs(d, cfg.d_ff, axes=("embed", "ff")),
+            "wv": dense_specs(cfg.d_ff, d, axes=("ff", "embed")),
+            "wr": dense_specs(d, d, axes=("embed", "embed_out")),
         },
     }
 
@@ -216,6 +217,15 @@ def _rwkv6_step(p, x_t, state, cfg):
     return x, state
 
 
+def rwkv6_state_axes() -> RWKVState:
+    """Logical axes of the state's leaves: the wkv heads shard like query
+    heads (replicated where ``d / rwkv_head_dim`` does not divide the model
+    axis)."""
+    return RWKVState(x_prev_t=Axes(("batch", None, None)),
+                     x_prev_c=Axes(("batch", None, None)),
+                     S=Axes(("batch", "q_heads", None, None)))
+
+
 def _rwkv6_init_state(cfg, B, device, max_len=0):
     del max_len  # a streaming state does not grow with the context
     return rwkv6_init_state(cfg, B, device)
@@ -227,6 +237,7 @@ seq_op.register_op(seq_op.SequenceOp(
     forward=_rwkv6_forward,
     step=_rwkv6_step,
     init_state=_rwkv6_init_state,
+    state_axes=lambda cfg: rwkv6_state_axes(),
     streaming=True,
     spec_decodable=True,
     self_contained=True,

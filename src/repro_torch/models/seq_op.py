@@ -22,8 +22,15 @@ over it), ``needs_positions`` (consumes absolute positions, e.g. RoPE),
 ``self_contained`` (owns its norms and channel mix, replacing the whole
 block), ``prealloc_state`` (a prefill given no state starts from a preallocated
 one: a KV cache, which it fills in place, or, as the reference's mamba
-has it, a zero carry).  The reference's ``state_axes`` / ``state_ndims`` are
-sharding data and wait for a multi-GPU port.
+has it, a zero carry).
+
+Sharding data (the reference's): ``state_axes(cfg)`` is a tree of
+``param.Axes`` matching ``init_state``'s tree leaf for leaf, the logical
+axes of every decode-state leaf (``distributed/steps.py::state_axes``
+resolves them against a mesh for the serving pool and the dry run);
+``state_ndims(cfg)`` optionally gives each leaf's rank, which
+``resolve_state_ndims`` otherwise reads from an ``init_state`` on the
+meta device.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from __future__ import annotations
 import dataclasses
 import difflib
 from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
 
 
 class SequenceOpError(KeyError):
@@ -44,6 +53,8 @@ class SequenceOp:
     forward: Callable[..., Any]
     init_state: Callable[..., Any]
     step: Optional[Callable[..., Any]] = None
+    state_axes: Optional[Callable[[Any], Any]] = None
+    state_ndims: Optional[Callable[[Any], Any]] = None
     # capability flags
     streaming: bool = False
     has_fused_kernels: bool = False
@@ -67,6 +78,17 @@ class SequenceOp:
         if self.streaming and self.step is None:
             raise SequenceOpError(
                 f"op {self.name!r}: streaming=True requires a step()")
+
+    def resolve_state_ndims(self, cfg):
+        """Per-leaf ranks of the state tree: the ``state_ndims`` override,
+        or read from an ``init_state`` on the meta device (no
+        allocation)."""
+        if self.state_ndims is not None:
+            return self.state_ndims(cfg)
+        from .state_tree import tree_map
+
+        st = self.init_state(cfg, 1, torch.device("meta"), max_len=8)
+        return tree_map(lambda x: x.ndim, st)
 
 
 _REGISTRY: Dict[str, SequenceOp] = {}

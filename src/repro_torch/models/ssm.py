@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core._scan import associative_scan
 from . import seq_op
 from .blocks import dense_apply, dense_specs
-from .param import Spec
+from .param import Axes, Spec
 
 MAMBA_CHUNK = 128  # the reference's ``mamba_apply`` chunk
 
@@ -75,17 +75,19 @@ def mamba_specs(cfg):
     d_in = mc.expand * d
     dt_rank = mc.dt_rank or max(1, d // 16)
     return {
-        "in_proj": dense_specs(d, 2 * d_in),
-        "conv_w": Spec((mc.d_conv, d_in), init="normal"),
-        "conv_b": Spec((d_in,), init="zeros"),
-        "x_proj": dense_specs(d_in, dt_rank + 2 * mc.d_state),
+        "in_proj": dense_specs(d, 2 * d_in, axes=("embed", "inner")),
+        "conv_w": Spec((mc.d_conv, d_in), ("conv", "inner"), init="normal"),
+        "conv_b": Spec((d_in,), ("inner",), init="zeros"),
+        "x_proj": dense_specs(d_in, dt_rank + 2 * mc.d_state,
+                              axes=("inner", None)),
         "dt_proj": {
-            "kernel": Spec((dt_rank, d_in)),
-            "bias": Spec((d_in,), init="constant", const=0.54),
+            "kernel": Spec((dt_rank, d_in), (None, "inner")),
+            "bias": Spec((d_in,), ("inner",), init="constant", const=0.54),
         },
-        "A_log": Spec((d_in, mc.d_state), init="constant", const=0.0),
-        "D": Spec((d_in,), init="ones"),
-        "out_proj": dense_specs(d_in, d),
+        "A_log": Spec((d_in, mc.d_state), ("inner", "state"),
+                      init="constant", const=0.0),
+        "D": Spec((d_in,), ("inner",), init="ones"),
+        "out_proj": dense_specs(d_in, d, axes=("inner", "embed")),
     }
 
 
@@ -200,6 +202,13 @@ def _mamba_step(p, x_t, state, cfg):
     return y, state
 
 
+def mamba_state_axes() -> MambaState:
+    """Logical axes of the state's leaves: d_inner shards by the "inner"
+    rule."""
+    return MambaState(conv=Axes(("batch", None, "inner")),
+                      h=Axes(("batch", "inner", None)))
+
+
 def _mamba_init_state(cfg, B, device, max_len=0):
     del max_len  # a streaming state does not grow with the context
     return mamba_init_state(cfg, B, device)
@@ -211,6 +220,7 @@ seq_op.register_op(seq_op.SequenceOp(
     forward=_mamba_forward,
     step=_mamba_step,
     init_state=_mamba_init_state,
+    state_axes=lambda cfg: mamba_state_axes(),
     streaming=True,
     spec_decodable=True,
     prealloc_state=True,  # the reference's flag (its hybrid group scan

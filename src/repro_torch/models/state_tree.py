@@ -6,18 +6,24 @@ hla2/ahla states are flat NamedTuples; ``HLA3ExactState`` nests a
 ``LinAttnState`` and an ``HLA2State``.  The leaf order is the reference's
 tree order (dict keys sorted), so a leaf list (a crc32 over its bytes, a
 ``zip`` with the reference's ``jax.tree.leaves``) compares leaf for leaf.
+A state-axes tree (``SequenceOp.state_axes``) has the same structure with
+a ``param.Axes`` at every leaf, and ``tree_map(fn, states, axes)`` pairs
+them; an axes tree or a tree of ranks (``resolve_state_ndims``) flattens
+like a state.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .param import Axes
+
 
 def flatten(tree):
     """``(leaves, rebuild)`` of a state tree: a tensor, a (named) tuple or
     list, or a dict (sorted keys); ``rebuild(leaves)`` is the same tree
     over new leaves."""
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, Axes, int)):
         return [tree], lambda leaves: leaves[0]
     if isinstance(tree, dict):
         keys = sorted(tree)

@@ -28,8 +28,9 @@ cross K/V it computed from the encoder, in the activation dtype; a decode
 step updates the self state in place and reads the cross K/V.  Layers are
 a Python loop over the stacked parameters; ``cfg.remat == "full"``
 recomputes each encoder and decoder layer in backward
-(``torch.utils.checkpoint``).  The reference's ``whisper_state_axes`` is
-sharding data and waits for a multi-GPU port.
+(``torch.utils.checkpoint``).  ``whisper_state_axes`` is the states'
+sharding data (the reference's); whisper's sharded forward waits for the
+next multi-GPU slice (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from .blocks import (
     unembed_apply,
 )
 from .lm import MODES, _layer, _stack, next_token_ce
-from .param import Spec
+from .param import Axes, Spec
 from .state_tree import tree_map
 
 POS_ROWS = 4096  # the learned decoder position table
@@ -98,7 +99,8 @@ def _dec_layer_specs(cfg):
 def whisper_specs(cfg):
     return {
         "embed": embed_specs(cfg.vocab, cfg.d_model),
-        "pos_embed": Spec((POS_ROWS, cfg.d_model), init="embed", scale=0.01),
+        "pos_embed": Spec((POS_ROWS, cfg.d_model), (None, "embed"),
+                          init="embed", scale=0.01),
         "enc_layers": _stack(_enc_layer_specs(cfg), cfg.enc_layers),
         "enc_norm": layernorm_specs(cfg.d_model),
         "dec_layers": _stack(_dec_layer_specs(cfg), cfg.n_layers),
@@ -224,6 +226,15 @@ def whisper_init_states(cfg, B: int, device, max_len: int = 0):
     }
     L = cfg.n_layers
     return tree_map(lambda x: x.expand((L,) + x.shape).clone(), one)
+
+
+def whisper_state_axes(cfg):
+    """Logical axes matching ``whisper_init_states`` leaf for leaf, the
+    ``layers`` stacking dim included (see ``lm.lm_state_axes``)."""
+    cross = Axes(("batch", "kv_heads", None, None))
+    one = {"self": _self_op(cfg).state_axes(cfg), "cross_k": cross,
+           "cross_v": cross}
+    return tree_map(lambda ax: Axes(("layers",) + tuple(ax)), one)
 
 
 def whisper_apply(params, tokens, frames, cfg, *, states=None,

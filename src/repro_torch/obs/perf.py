@@ -63,6 +63,19 @@ _KNOWN_PEAKS = (
     ("H100 80GB HBM3", 989e12, 3.35e12),  # H100 SXM
 )
 
+#: card-to-card bytes/s one way, the rate the dry run's ``collective_s``
+#: divides a rank's collective bytes by (a ring collective sends and
+#: receives at once, so each direction carries its share).  Published, not
+#: measured.  Source: the same data sheet's interconnect row, halved for one
+#: direction: SXM NVLink 900 GB/s, NVL NVLink bridge 600 GB/s, PCIe Gen5
+#: 128 GB/s.  NVLink joins the 8 cards of one HGX board; a mesh beyond them
+#: crosses the network, slower than this.
+_KNOWN_LINKS = (
+    ("H100 NVL", 300e9),
+    ("H100 PCIe", 64e9),
+    ("H100 80GB HBM3", 450e9),
+)
+
 _peak_cache: dict = {}
 
 
@@ -130,6 +143,18 @@ def _calibrate_cuda_peak(device, d: int = 8192, copy_mb: int = 1024,
         dst = torch.empty_like(src)
         membw = 2.0 * src.numel() / (best_ms(lambda: dst.copy_(src)) * 1e-3)
     return flops, membw
+
+
+def published_peak(kind: str) -> dict:
+    """The published rates of a card the tables know, by (a substring of)
+    its name: ``{"flops_per_s", "bytes_per_s", "link_bytes_per_s",
+    "kind", "source": "published"}``.  Needs no card (the dry run)."""
+    for (key, flops, membw), (_, link) in zip(_KNOWN_PEAKS, _KNOWN_LINKS):
+        if key in kind:
+            return {"flops_per_s": flops, "bytes_per_s": membw,
+                    "link_bytes_per_s": link, "kind": key,
+                    "source": "published"}
+    raise KeyError(f"no published rates for {kind!r}")
 
 
 def device_peak(device=None) -> dict:

@@ -8,6 +8,14 @@ and stored back rounded, as the reference does.  Weight decay applies to
 every leaf with ``ndim >= 2``: with the stacked ``layers`` axis that
 includes the norm scales, ``out_scale`` and ``decay_a`` of the layers, as
 in the reference.
+
+Under a mesh the leaves are DTensors: the moments may be split further
+than their parameters (ZeRO-1, ``distributed.sharding.zero1_spec``), each
+gradient is brought to its moments' placements (a local slice) and the
+update to the parameter's (an all-gather over "data"), and the clip's
+global norm is one sum of squares over every leaf's local block (each
+block counted once: on the first rank of every mesh dim it is replicated
+over; a ``Partial`` gradient is summed first), reduced once over the mesh.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from ..models.param import leaf_paths, tree_map
 
@@ -60,8 +69,25 @@ def cosine_lr(step, cfg: OptConfig) -> float:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum()
-                          for _, x in leaf_paths(tree)))
+    xs = [x for _, x in leaf_paths(tree)]
+    if not any(isinstance(x, DTensor) for x in xs):
+        return torch.sqrt(sum(x.float().square().sum() for x in xs))
+    mesh = xs[0].device_mesh
+    coord = mesh.get_coordinate()
+    # a Partial block is a share of a sum: reduce it before squaring
+    xs = [x.redistribute(mesh, [Replicate() if pl.is_partial() else pl
+                                for pl in x.placements])
+          if any(pl.is_partial() for pl in x.placements) else x for x in xs]
+    loc = [x.to_local() for x in xs]
+    total = torch.zeros((), dtype=torch.float32, device=loc[0].device)
+    for x, lx in zip(xs, loc):
+        # a block replicated over a mesh dim counts on that dim's rank 0
+        if all(c == 0 for c, pl in zip(coord, x.placements)
+               if not pl.is_shard()):
+            total = total + lx.float().square().sum()
+    part = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                              run_check=False)
+    return torch.sqrt(part.full_tensor())
 
 
 def clip_by_global_norm(grads, max_norm):
@@ -99,6 +125,8 @@ def adamw_update(params, grads, state: OptState, cfg: OptConfig):
     for (_, p), (_, m), (_, v), (_, g) in zip(
             leaf_paths(params), leaf_paths(state.mu), leaf_paths(state.nu),
             leaf_paths(grads)):
+        if isinstance(m, DTensor) and g.placements != m.placements:
+            g = g.redistribute(m.device_mesh, m.placements)
         ct = torch.promote_types(p.dtype, torch.float32)
         if m.element_size() >= 4:
             m.mul_(b1).add_((1 - b1) * g)

@@ -93,6 +93,8 @@ class FaultTolerantLoop:
         log=print,
         place_batch: Optional[Callable] = None,
         obs: Optional[Obs] = None,
+        shardings=None,
+        mesh=None,
     ):
         self.train_step = train_step
         self.data = data_stream
@@ -116,6 +118,8 @@ class FaultTolerantLoop:
         self.metrics_path = metrics_path
         self.log = log
         self.place_batch = place_batch or (lambda b: b)
+        # on a mesh: where a resume re-places (params, opt_state)
+        self.shardings, self.mesh = shardings, mesh
         self.watchdog = StragglerWatchdog(log=log)
         self._preempted = False
 
@@ -149,7 +153,8 @@ class FaultTolerantLoop:
         start = 0
         if self.manager.latest_step() is not None:
             (params, opt_state), manifest = self.manager.restore(
-                (params, opt_state))
+                (params, opt_state), shardings=self.shardings,
+                mesh=self.mesh)
             start = manifest["step"] + 1
             self._m_restarts.inc()
             self.obs.event("train.resumed", step=manifest["step"])

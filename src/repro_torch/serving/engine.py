@@ -57,7 +57,18 @@ Twin of ``repro/serving/engine.py`` on the port's in-place state pool:
   ``Engine.stats`` is the reference's dict view over the registry, with
   two keys of the port's own: ``decode_steps`` and ``spec_replay_steps``.
 
-The reference's ``mesh=`` (sharded serving) is not ported.
+* **Sharded serving** (``mesh=``, the reference's): the parameters are
+  DTensors on the mesh (``distributed.sharding.distribute``), the slot
+  states get ``distributed.steps.state_shardings_for`` placements (slots
+  over "data", heads over "model"), and admission and the decode block
+  run inside ``sharding.use_mesh``, where every HLA kernel call runs on
+  each rank's own (batch, head) row block
+  (``distributed.shard_ops.call_sharded``).  The tokens each step reads
+  are batch-sharded; the logits are gathered before sampling, so every
+  rank samples the same tokens from the same generator and holds the
+  same streams.  Speculative decoding and the prefix cache under a mesh
+  wait for the next multi-GPU slice (ROADMAP Queue 1 item 4) and raise
+  ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,6 +82,8 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
+from ..distributed import sharding as shd
+from ..distributed import steps as steps_mod
 from ..models import lm, seq_op
 from ..models.state_tree import leaves, tree_map
 from ..obs import Obs
@@ -80,7 +93,7 @@ from .sampling import SamplingConfig, sample
 from .scheduler import Scheduler, SchedulerConfig
 from .spec import SpecConfig, build_drafter
 from .spec.verify import make_spec_round
-from .state_pool import StatePool, to_device
+from .state_pool import StatePool, all_finite, to_device
 
 #: ``Engine.stats`` keys -> unlabeled registry counters.  The reference's
 #: keys, and two of the port's: ``decode_steps`` (plain-block decode steps)
@@ -185,14 +198,6 @@ class GenResult:
     error: Optional[str] = None
 
 
-def _finite(states) -> torch.Tensor:
-    flat = leaves(states)
-    ok = torch.ones((), dtype=torch.bool, device=flat[0].device)
-    for x in flat:
-        ok &= x.isfinite().all()
-    return ok
-
-
 def _to(states, device, **kw):
     return tree_map(lambda x: x.to(device, **kw), states)
 
@@ -232,13 +237,18 @@ class Engine:
                  faults: Optional[FaultPlan] = None,
                  obs: Optional[Obs] = None,
                  cache: Optional[PrefixCache] = None,
-                 sched: Optional[SchedulerConfig] = None):
+                 sched: Optional[SchedulerConfig] = None, mesh=None):
         device = torch.device(device)
+        if mesh is not None and (spec is not None or cache is not None):
+            raise NotImplementedError(
+                "speculative decoding and the prefix cache under a mesh wait "
+                "for the next multi-GPU slice (ROADMAP Queue 1 item 4)")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') needs a CUDA device")
         check_servable(cfg, spec)
         self.cfg = cfg
         self.device = device
+        self.mesh = mesh
         self.params = lm.cast_params(params, cfg)
         self.sampling = sampling
         self.block = block
@@ -252,8 +262,13 @@ class Engine:
             slots = sched.max_slots
         self.sched_cfg = sched if sched is not None else SchedulerConfig(
             min_slots=slots, max_slots=slots)
+        pool_pl = None
+        if mesh is not None:
+            pool_pl = steps_mod.state_shardings_for(
+                cfg, mesh, lm.lm_init_states(cfg, slots, "meta"))
         self.pool = StatePool(
-            lambda n: lm.lm_init_states(cfg, n, device), slots)
+            lambda n: lm.lm_init_states(cfg, n, device), slots, mesh=mesh,
+            placements=pool_pl)
         self.tokens = torch.zeros((slots, 1), dtype=torch.long, device=device)
         self.active = np.zeros(slots, bool)
         self._slot_req: List[Optional[GenRequest]] = [None] * slots
@@ -344,6 +359,19 @@ class Engine:
                     "embedding out of range")
             self._spec_round_fn = make_spec_round(
                 cfg, sampling, draft_probs=self.drafter.emits_probs)
+
+    def _mesh_ctx(self):
+        """The engine's mesh as the current one (the mixers' row dispatch
+        and the logical-axis constraints read it); off-mesh a no-op."""
+        return shd.use_mesh(self.mesh)
+
+    def _rows(self, x):
+        """A batch of token rows as the model reads it: on a mesh a
+        batch-sharded DTensor (each rank keeps its own rows)."""
+        if self.mesh is None:
+            return x
+        return shd.distribute_leaf(x, self.mesh,
+                                   shd.batch_sharding(self.mesh, x.shape))
 
     # -- fault injection ----------------------------------------------------
 
@@ -451,12 +479,16 @@ class Engine:
                     _, carry = lm.lm_prefill(self.params, ids[:, done:aligned],
                                              self.cfg, states=carry)
                     done = insert_at = aligned
-            last, states = lm.lm_prefill(self.params, ids[:, done:], self.cfg,
-                                         states=carry)
+            with self._mesh_ctx():
+                last, states = lm.lm_prefill(
+                    self.params, self._rows(ids[:, done:]), self.cfg,
+                    states=carry)
+            last = shd.full(last)
             first = sample(last, self.gen, scfg)[0]
-            flags = [first, (_finite(states) & last.isfinite().all()).long()]
+            flags = [first,
+                     (all_finite(states) & last.isfinite().all()).long()]
             if insert_at:
-                flags.append(_finite(carry).long())
+                flags.append(all_finite(carry).long())
                 # the boundary state's host copy, queued before the sync
                 # below so it rides it (pinned memory when from the card)
                 snap = _to(carry, "cpu", non_blocking=True, copy=True)
@@ -663,9 +695,11 @@ class Engine:
             tok = self.tokens
             steps = []
             for _ in range(n_steps):
-                logits, _, _ = lm.lm_apply(self.params, tok, self.cfg,
-                                           states=self.pool.states,
-                                           mode="decode")
+                with self._mesh_ctx():
+                    logits, _, _ = lm.lm_apply(
+                        self.params, self._rows(tok), self.cfg,
+                        states=self.pool.states, mode="decode")
+                logits = shd.full(logits)
                 if sel is None:
                     nxt = sample(logits[:, -1], self.gen, uniq[0])
                 else:

@@ -17,8 +17,10 @@ A ``Drafter`` follows the engine's slot lifecycle (``admit`` / ``commit`` /
   reference discards them for free, its states being immutable).
 
 ``propose`` returns device tensors (the engine feeds them straight into the
-verify block) or numpy arrays.  The reference's ``mesh=`` (a draft model
-sharded over devices) is not ported.
+verify block) or numpy arrays.  The reference's ``HLADrafter(mesh=)`` (a
+draft model sharded over devices) and the speculative round under a mesh
+come with the next multi-GPU slice (ROADMAP Queue 1 item 4):
+``Engine(mesh=)`` refuses ``spec`` until then.
 """
 
 from __future__ import annotations
