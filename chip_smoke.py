@@ -79,7 +79,12 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    (a) 2 microbatches against the sum of the two rows' gradients taken
    alone with the whole batch's denominator: fp32 leaves, the loss and
    every leaf within ``TOL_FP32``; 2 microbatches against 1 and each
-   run's peak memory are logged; (c) bf16: a
+   run's peak memory are logged; (f) ``remat="dots"`` against ``"none"``:
+   the loss and every gradient leaf within ``TOL_FP32`` at 48 + 24
+   launches (the kernels' forwards recomputed), its memory above what was
+   held between ``"full"``'s and ``"none"``'s, and 2 AdamW steps of each
+   from the same weights: the losses and final parameters within
+   ``TOL_FP32``; (c) bf16: a
    ``FaultTolerantLoop`` that checkpoints after step 1 (17.05 GB: fp32
    parameters and both moments) and dies at an injected ``train.step``
    fault, then a fresh loop that resumes from step 1 and gives the
@@ -220,13 +225,36 @@ Phases, each of which raises on failure (exit code nonzero, no result line):
    sync debug mode's warnings); TTFT, decode tok/s, peak memory of both;
    (c) the dry run (``launch/dryrun.py``, host work on fake process groups,
    ``DRYRUN_WORKERS`` at a time, started after (a) and (b), which time the
-   host, and run beside phase 7; its lines printed after phase 7) of
+   host, and run beside phases 17 and 7; its lines printed after phase 7)
+   of
    hla-1b,
    qwen2-72b and codeqwen1.5-7b with ``hla2`` at full depth, ``train_4k``
    (``decode_32k`` cut for time), on a (1, 4) mesh and the production
    16 x 16: one
    line a cell (GiB a rank, whether it fits in 80 GB, collective bytes by
    kind, the roofline's terms and bottleneck);
+17. (runs after phase 16 (a), (b), beside (c)'s dry runs) the rest
+   of the multi-device code under a one-rank ``(data, model)`` NCCL mesh:
+   (a) ``Engine(mesh=, spec=)`` for hla-1b at full size, ``hla2`` and
+   ``ahla``, fp32 greedy, with the n-gram and the LM drafter (its pool on
+   the mesh too), on phase 5's first 4 requests cut to 16 tokens: phase
+   5's fp32 greedy streams token for token, launches equal the stats'
+   counts (verify chunk launches, replay steps, draft steps), one host
+   transfer an admission and one a round (two with a rollback); (b)
+   ``Engine(mesh=, cache=)`` on phase 8 (a)'s requests and injected
+   ``cache.corrupt``: phase 8 (a)'s streams and the same hits at the same
+   prompt positions, launches exact; (c) a 2 x 128 train step's loss
+   and gradients, then a 16-token prefill and 2 serve steps' logits, of
+   qwen3-moe-30b-a3b (2 layers, ``hla2``), jamba's one group at half width
+   (the ``hla2`` drop-in), rwkv6-7b (2 layers) and whisper-small
+   (``hla2``), every other width as published: equal to the unsharded
+   runs bit for bit (deterministic algorithms on), the same launches; (d)
+   ``compression.int8_allreduce_mean`` over the one rank against
+   ``quantize_dequantize``, ``pipeline_par.pipelined_forward`` with S = 1
+   against the serial stack (forward and gradients within 1e-5 and
+   1e-4). Full-depth jamba's and qwen3-moe's ``train_4k`` dry runs take
+   ~600 s and ~60 s of host time: they are run on their own
+   (``launch/dryrun.py``), not here;
 7. time each kernel and its plain version at its path's shapes (the step
    kernels also at 16 rows, one slot; the chunk forwards also at the
    verify shape, ``[verify]``; all six also at phase 13's d = 64 shapes,
@@ -990,11 +1018,14 @@ def _count_plain_calls(plains):
 
 
 def serve_spec(params, cfg, device, drafter, n_req=8, slots=4,
-               lens=(256, 640), gen=64, block=8):
+               lens=(256, 640), gen=64, block=8, mesh=None, reqs=None):
     """Serve the serve phase's requests speculatively (``drafter``: "ngram",
-    "lm" or an instance; k = ``SPEC_K``).  On the card, the run's kernel
-    launches must equal the counts its stats imply, with no plain-version
-    call and no breaker trip.  Returns its summary numbers and streams."""
+    "lm" or an instance; k = ``SPEC_K``), on ``mesh`` when given (the
+    parameters distributed; the draft LM's too).  On the card, the run's
+    kernel launches must equal the counts its stats imply, with no
+    plain-version call and no breaker trip.  ``reqs`` (each of ``gen``
+    tokens) replaces the serve phase's.  Returns its summary numbers,
+    streams and engine."""
     import collections
 
     import torch
@@ -1008,9 +1039,16 @@ def serve_spec(params, cfg, device, drafter, n_req=8, slots=4,
     # the breaker into plain blocks: here it trips on a drafter exception
     # only, so any trip fails the phase
     spec = SpecConfig(k=SPEC_K, drafter=drafter, breaker_zero_rounds=2**31)
+    if mesh is not None:
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.models import lm
+
+        params = shd.distribute(params, shd.param_shardings(
+            lm.lm_specs(cfg), mesh), mesh)
     engine = Engine(cfg, params, slots=slots, max_len=lens[1] + gen + 8,
-                    block=block, seed=0, device=device, spec=spec)
-    reqs = serve_requests(cfg, n_req, lens, gen)
+                    block=block, seed=0, device=device, spec=spec, mesh=mesh)
+    reqs = reqs or serve_requests(cfg, n_req, lens, gen)
+    n_req = len(reqs)
     engine.run([GenRequest(rid=-1, prompt=reqs[0].prompt, max_new=block)])
     engine.obs.reset()
     engine.reset_breaker()
@@ -1070,9 +1108,11 @@ def serve_spec(params, cfg, device, drafter, n_req=8, slots=4,
         ms_per_round=1e3 * st["decode_s"] / max(rounds, 1),
         tok_per_round=(st["generated_tokens"] - n_req) / max(rounds, 1),
         peak_gib=peak, launches=launches,
-        streams=[r.tokens for r in results])
-    log(f"speculative serve, {cfg.mixer}, {cfg.dtype}, drafter {name}, k "
-        f"{SPEC_K}: {n_req} requests in {wall:.2f}s | decode "
+        streams=[r.tokens for r in results], engine=engine)
+    where = "" if mesh is None else \
+        f" on mesh{dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+    log(f"speculative serve{where}, {cfg.mixer}, {cfg.dtype}, drafter "
+        f"{name}, k {SPEC_K}: {n_req} requests in {wall:.2f}s | decode "
         f"{out['decode_tok_s']:.1f} tok/s | {rounds} rounds, "
         f"{out['ms_per_round']:.2f} ms/round, {out['tok_per_round']:.2f} "
         f"committed tok/round | acceptance {out['acceptance']:.3f} "
@@ -1119,7 +1159,8 @@ def spec_phase(params, cfg, device, plain_bf16, n_req=8, lens=(256, 640),
     is within the bound set by the bf16 logit error between the verify
     route and the decode route, measured here: 4 x that error, 2 x for a
     difference of two logits and 2 x more for a stream whose state mixed
-    both routes.  Returns the n-gram bf16 run's numbers."""
+    both routes.  Returns the bf16 runs' numbers by drafter, and under
+    ``"fp32"`` plain fp32 greedy's streams (phase 17's oracle)."""
     from repro_torch.models import lm
 
     cfg32 = cfg.replace(dtype="float32")
@@ -1127,6 +1168,7 @@ def spec_phase(params, cfg, device, plain_bf16, n_req=8, lens=(256, 640),
     _, plain32 = serve(params, cfg32, device, **kw)
     for drafter in ("ngram", _wrong_drafter()):
         out = serve_spec(params, cfg32, device, drafter, **kw)
+        del out["engine"]
         parted = [(i, _parted_at(a, b)) for i, (a, b) in
                   enumerate(zip(plain32["streams"], out["streams"]))
                   if a != b]
@@ -1140,9 +1182,10 @@ def spec_phase(params, cfg, device, plain_bf16, n_req=8, lens=(256, 640),
             raise AssertionError("the wrong drafter never rolled back")
 
     reqs = serve_requests(cfg, n_req, lens, gen)
-    runs = {}
+    runs = {"fp32": plain32["streams"]}
     for drafter in ("ngram", "lm"):
         out = serve_spec(params, cfg, device, drafter, **kw)
+        del out["engine"]
         runs[drafter] = out
         # the engine's bf16 weights, cast anew: a copy kept across the runs
         # would count in their peak memory
@@ -1464,6 +1507,7 @@ def frontend_exact(params, cfg, device, gen=16):
         raise AssertionError(f"{dropped} corrupt entries dropped, want 1")
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"kernel launches {launches}, want {want}")
+    return dict(streams=[r.tokens for r in got], admitted=admitted)
 
 
 def split_route_logits(params, cfg, prompt, toks, hit, aligned):
@@ -1706,8 +1750,9 @@ def frontend_load(params, cfg, device, spec=None, n_req=16, gen=32):
 def frontend_phase(params, cfg, device, spec=False):
     """Phase 8 for ``cfg.mixer``: (a) fp32 exactness, (b) bf16 under load,
     then the hit admission's time split on (b)'s cache; with ``spec`` also
-    (b) with the n-gram drafter.  Returns (b)'s numbers and the split."""
-    frontend_exact(params, cfg, device)
+    (b) with the n-gram drafter.  Returns (b)'s numbers, the split and
+    (a)'s streams and admissions (phase 17's oracle)."""
+    exact = frontend_exact(params, cfg, device)
     load, engine = frontend_load(params, cfg, device)
     reqs = frontend_requests(cfg, FE_SUFFIXES, 2)
     split = hit_split(engine, cfg, device, reqs)
@@ -1716,7 +1761,7 @@ def frontend_phase(params, cfg, device, spec=False):
         frontend_load(params, cfg, device, spec=dict(
             k=SPEC_K, drafter="ngram", breaker_zero_rounds=2**31,
             breaker_cooldown_blocks=2**31))
-    return load, split
+    return load, split, exact
 
 
 # --------------------------------------------------------------------------
@@ -1749,12 +1794,13 @@ def _want_train(cfg, steps=1, microbatches=1):
     """Each training kernel's launches over ``steps`` steps of ``cfg``: per
     layer and microbatch one forward and one backward, and under
     ``remat="full"`` the forward again when backward recomputes the
-    layer.  A plain record launches none."""
+    layer (``"full"`` and ``"dots"``).  A plain record launches none."""
     if cfg.mixer not in TRAIN_KERNELS:
         return {}
     _, fwd, bwd = TRAIN_KERNELS[cfg.mixer]
     passes = _mixer_layers(cfg) * steps * microbatches
-    return {fwd: passes * (2 if cfg.remat == "full" else 1), bwd: passes}
+    # "dots" recomputes all but the 2-d products: the kernels' forwards too
+    return {fwd: passes * (2 if cfg.remat != "none" else 1), bwd: passes}
 
 
 def _count_train(device, cfg, fn):
@@ -1922,6 +1968,7 @@ def _grads_phase(device, cfg, params, batch, microbatches, label):
         f"before the call | launches {launches}")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
+    _grads_phase.peak = peak - held
     return loss, grads
 
 
@@ -1984,7 +2031,9 @@ def accum_remat_phase(device, cfg=None, seq=2048):
     the microbatch boundary:
 
     (b) the config's remat (``"full"``) against ``"none"``, 1 microbatch:
-    the same loss and every gradient leaf within ``TOL_FP32``;
+    the same loss and every gradient leaf within ``TOL_FP32``; (f)
+    ``remat="dots"`` against ``"none"`` likewise, its memory above what was
+    held between the other two's;
     (a) ``accumulate_grads`` with 2 microbatches against the sum of the
     two rows' gradients, each taken alone with the whole batch's label
     count as denominator (``_row_grads``): the same GEMMs on both sides, so
@@ -2019,10 +2068,24 @@ def accum_remat_phase(device, cfg=None, seq=2048):
         return loss, _flat(g)
 
     one = grads(cfg, 1, f"{what}, remat {cfg.remat}) 1 microbatch")
+    peaks = {cfg.remat: _grads_phase.peak}
     none = grads(cfg.replace(remat="none"), 1,
                  f"{what}, remat none) 1 microbatch")
+    peaks["none"] = _grads_phase.peak
     _same_grads(one, none, f"(b) remat {cfg.remat} vs none")
-    del none
+    # (f) remat "dots": the 2-d products' outputs kept, the rest (the
+    # kernels' forwards among it) recomputed
+    dots = grads(cfg.replace(remat="dots"), 1,
+                 f"{what}, remat dots) 1 microbatch")
+    peaks["dots"] = _grads_phase.peak
+    _same_grads(dots, none, "(f) remat dots vs none")
+    log(f"(f) memory above what was held, GiB: " + ", ".join(
+        f"remat {k} {v:.2f}" for k, v in peaks.items()))
+    if device.type == "cuda" and not \
+            peaks[cfg.remat] < peaks["dots"] < peaks["none"]:
+        raise AssertionError(f"(f) remat dots' peak is not between "
+                             f"{cfg.remat}'s and none's: {peaks}")
+    del none, dots
     two = grads(cfg, 2, f"{what}, remat {cfg.remat}) 2 microbatches")
     dtypes = {str(g.dtype) for g in two[1].values()}
     if dtypes != {"torch.float32"}:
@@ -2036,6 +2099,57 @@ def accum_remat_phase(device, cfg=None, seq=2048):
     del one, two, params
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    remat_steps(device, cfg)
+
+
+def remat_steps(device, cfg, steps=2, seq=2048, lr=1e-5):
+    """(f) ``steps`` AdamW steps of fp32 ``cfg`` with ``remat="dots"`` and
+    with ``"none"``, each from the same seeded weights on one batch: every
+    step's loss and the final parameters within ``TOL_FP32`` (relative to
+    each leaf's largest), the launches of each path's steps exact."""
+    import torch
+
+    from repro_torch.distributed import steps as S
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+    from repro_torch.optim import adamw
+
+    batch = _uneven_batch(cfg, device, seq=seq)
+    opt_cfg = adamw.OptConfig(lr=lr, warmup_steps=1, total_steps=steps)
+    runs = {}
+    for remat in ("dots", "none"):
+        c = cfg.replace(remat=remat)
+        params = init_params(lm.lm_specs(c), 0, device)
+        state = adamw.init_opt_state(params)
+        step = S.make_train_step(c, opt_cfg)
+        losses = []
+
+        def run():
+            nonlocal params, state
+            for _ in range(steps):
+                params, state, m = step(params, state, batch)
+                losses.append(float(m["loss"]))
+
+        _, launches = _count_train(device, c, run)
+        want = _want_train(c, steps)
+        if launches != want:
+            raise AssertionError(f"(f) remat {remat}: launches {launches}, "
+                                 f"want {want}")
+        runs[remat] = (losses, {k: x.detach().cpu() for k, x in
+                                _flat(params).items()})
+        del params, state
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    (l_d, p_d), (l_n, p_n) = runs["dots"], runs["none"]
+    e_l = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(l_d, l_n))
+    errs = {k: rel_err(x, p_n[k]) for k, x in p_d.items()}
+    worst = max(errs, key=errs.get)
+    log(f"(f) {steps} AdamW steps (lr {lr}), remat dots vs none: losses "
+        f"{' '.join(f'{x:.6f}' for x in l_d)} vs "
+        f"{' '.join(f'{x:.6f}' for x in l_n)} (rel {e_l:.2e}), final "
+        f"parameters rel <= {errs[worst]:.2e} ({worst}; tol {TOL_FP32:.0e})")
+    if not (e_l <= TOL_FP32 and errs[worst] <= TOL_FP32):
+        raise AssertionError("(f) remat dots' steps part from none's")
 
 
 def restart_phase(device, cfg=None, seq=2048, steps=3):
@@ -3421,8 +3535,8 @@ def start_dryruns(cells=DRYRUN_CELLS, reduced=False):
     process a cell on a fake process group, ``DRYRUN_WORKERS`` at a time,
     at the lowest CPU priority.  They are the host's work (no card): the
     script starts them after phase 16 (a) and (b), whose host times they
-    would move, so they run beside phase 7 (device-timed).  Returns ``(pool, futures)`` for
-    ``collect_dryruns``."""
+    would move, so they run beside phase 17 (exact checks) and phase 7
+    (device-timed).  Returns ``(pool, futures)`` for ``collect_dryruns``."""
     import os
     import tempfile
 
@@ -3687,12 +3801,6 @@ def mesh_phase(device, configs=None, train_shape=MESH_TRAIN, serve_kw=None):
     kernel mixers: ``mesh_train``, ``mesh_serve``.  (c) is
     ``start_dryruns`` / ``collect_dryruns``.  Returns the kernels'
     launches under the mesh and the summaries."""
-    import os
-    import tempfile
-
-    import torch
-    import torch.distributed as dist
-
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm
@@ -3702,16 +3810,8 @@ def mesh_phase(device, configs=None, train_shape=MESH_TRAIN, serve_kw=None):
     configs = configs or {m: get_config("hla-1b", mixer=m)
                           for m in ("hla2", "ahla")}
     serve_kw = serve_kw or MESH_SERVE
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.set_device(device)
-    dist.init_process_group(
-        "nccl" if cuda else "gloo",
-        store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
-        world_size=1, **({"device_id": device} if cuda else {}))
     launches, out = {}, {}
-    try:
+    with _one_rank_group(device):
         mesh = make_mesh((1, 1), ("data", "model"), device_type=device.type)
         for mixer, cfg in configs.items():
             trained = mesh_train(device, mesh, cfg, shape=train_shape)
@@ -3720,13 +3820,356 @@ def mesh_phase(device, configs=None, train_shape=MESH_TRAIN, serve_kw=None):
             del params
             out[mixer] = dict(train=trained, serve=served)
             for d in (trained["launches"], served["launches"]):
-                for k, v in d.items():
-                    launches[k] = launches.get(k, 0) + v
-    finally:
-        dist.destroy_process_group()
+                _add(launches, d)
     log(f"phase 16 (a), (b) took {time.perf_counter() - t0:.1f}s; launches "
         f"under the mesh {launches}")
     return launches, out
+
+
+# --------------------------------------------------------------------------
+# phase 17: the rest of the multi-device code under the one-rank mesh
+# (after phase 16 (a), (b))
+# --------------------------------------------------------------------------
+
+# (a): phase 5's first requests, its fp32 streams cut to ``gen`` tokens
+MESH_SPEC = dict(n_req=4, lens=(256, 640), gen=16)
+# (c): a train step's loss and gradients at rows x tokens, then a prefill
+# of FAMILY_PREFILL tokens and FAMILY_STEPS serve steps, per family
+FAMILY_TRAIN = (2, 128)
+FAMILY_PREFILL, FAMILY_STEPS = 16, 2
+# (d): the pipeline's shapes (the reference test's): layers, microbatches,
+# rows a microbatch, tokens, width
+PIPE = (8, 4, 2, 8, 16)
+
+
+@contextlib.contextmanager
+def _one_rank_group(device):
+    """A process group of one rank for the block (NCCL on the card, gloo
+    on a CPU rehearsal), rendezvous through a file in a temporary
+    directory."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "nccl" if cuda else "gloo",
+        store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, **({"device_id": device} if cuda else {}))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _transfers(device, fn):
+    """Host transfers of ``fn()`` (``analysis.contracts``' count; on the
+    card the sync debug mode's warnings must agree)."""
+    from repro_torch.analysis.contracts import _watch
+
+    with _watch(device) as w:
+        fn()
+    n = sum(w.transfers.values())
+    if w.sync_warnings is not None and w.sync_warnings != n:
+        raise AssertionError(f"{n} host transfers {dict(w.transfers)} but "
+                             f"{w.sync_warnings} sync warnings at "
+                             f"{w.sync_sites}")
+    return n
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def mesh_spec(device, mesh, params, cfg, fp32_streams, n_req=4,
+              lens=(256, 640), gen=16):
+    """(a) ``Engine(mesh=, spec=)`` with the n-gram and the LM drafter,
+    fp32 greedy: the streams equal phase 5's plain fp32 greedy streams of
+    the same requests (cut to ``gen`` tokens); ``serve_spec``'s launch
+    checks (verify chunk launches, replay and draft steps from the stats);
+    one host transfer an admission, one a round and a second when the
+    round rolled back.  Returns the launches under the mesh."""
+    from repro_torch.serving.engine import GenRequest
+
+    cfg32 = cfg.replace(dtype="float32")
+    want = [s[:gen] for s in fp32_streams[:n_req]]
+    # phase 5's first requests (its prompts are drawn after all the lengths)
+    reqs = [GenRequest(rid=r.rid, prompt=r.prompt, max_new=gen) for r in
+            serve_requests(cfg32, len(fp32_streams), lens, gen)[:n_req]]
+    launches = {}
+    for drafter in ("ngram", "lm"):
+        out = serve_spec(params, cfg32, device, drafter, gen=gen, mesh=mesh,
+                         reqs=reqs)
+        engine = out.pop("engine")
+        parted = [i for i, (a, b) in enumerate(zip(out["streams"], want))
+                  if a != b]
+        if parted:
+            raise AssertionError(f"(a) {cfg.mixer} {drafter}: streams "
+                                 f"{parted} part from phase 5's fp32 greedy")
+        prompt = serve_requests(cfg32, 1, lens, gen)[0].prompt
+        adm = _transfers(device, lambda: engine.admit(
+            0, GenRequest(rid=-2, prompt=prompt, max_new=4 * SPEC_K)))
+        before = engine.stats["spec_replays"]
+        rnd = _transfers(device, engine.step_block)
+        replayed = engine.stats["spec_replays"] - before
+        log(f"(a) {cfg.mixer} {drafter} on the mesh: {n_req} streams equal "
+            f"phase 5's fp32 greedy; host transfers: admission {adm}, a "
+            f"round {rnd} ({'rolled back' if replayed else 'no rollback'})")
+        if adm != 1 or rnd != 1 + replayed:
+            raise AssertionError(f"(a) host transfers: admission {adm}, "
+                                 f"round {rnd} (rollback {replayed})")
+        _add(launches, out["launches"])
+        del engine
+    return launches
+
+
+def mesh_cache(device, mesh, params, cfg, exact, gen=16):
+    """(b) ``Engine(mesh=, cache=)`` on phase 8 (a)'s shared-prefix
+    requests, with its injected ``cache.corrupt``: phase 8 (a)'s streams,
+    the same hits at the same prompt positions, launches exact.  Returns
+    the launches."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.obs import Obs
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    from repro_torch.serving import Engine, PrefixCache
+
+    cfg32 = cfg.replace(dtype="float32")
+    reqs = frontend_requests(cfg32, FE_SUFFIXES, gen)
+    p = shd.distribute(params, shd.param_shardings(lm.lm_specs(cfg32), mesh),
+                       mesh)
+    engine = Engine(cfg32, p, cache=PrefixCache(granularity=FE_CHUNK,
+                                                budget_bytes=1 << 40),
+                    obs=Obs(), faults=FaultPlan(FaultSpec("cache.corrupt",
+                                                          at=1)),
+                    slots=4, max_len=FE_PREFIX + 256 + gen + 8, block=8,
+                    seed=0, device=device, mesh=mesh)
+    got, launches, wall = _run_counted(device, lambda: engine.run(reqs))
+    admitted = _admitted(engine)
+    want, advances = _want_launches(cfg32, engine, admitted)
+    hits = {rid: hit for rid, (_, hit) in admitted.items() if hit}
+    log(f"(b) {cfg.mixer} cache on the mesh: {len(reqs)} requests in "
+        f"{wall:.2f}s; hits (rid: prefix) {hits}, {advances} carry "
+        f"advances; launches {launches}")
+    if [r.tokens for r in got] != exact["streams"]:
+        raise AssertionError("(b) the mesh engine's cached streams differ "
+                             "from phase 8 (a)'s")
+    if admitted != exact["admitted"]:
+        raise AssertionError(f"(b) admissions {admitted}, phase 8 (a)'s "
+                             f"{exact['admitted']}")
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"(b) launches {launches}, want {want}")
+    return launches
+
+
+def family_configs(get_config):
+    """(c)'s configs: qwen3-moe-30b-a3b at 2 layers with ``hla2``, jamba's
+    one group at half width (``_jamba_half``, the ``hla2`` drop-in; bf16
+    parameters), rwkv6-7b at 2 layers, whisper-small with ``hla2``; every
+    width else as published."""
+    return {
+        "qwen3-moe-30b-a3b": get_config("qwen3-moe-30b-a3b",
+                                        mixer="hla2").replace(n_layers=2),
+        "jamba-1.5-large-398b": _jamba_half(
+            get_config("jamba-1.5-large-398b")),
+        "rwkv6-7b": get_config("rwkv6-7b").replace(n_layers=2),
+        "whisper-small": get_config("whisper-small", mixer="hla2"),
+    }
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms for the block (``warn_only``: an op with
+    none warns).  The MoE dispatch's backward scatters each token's top-k
+    slot gradients into its row with atomic adds, whose order, and so
+    whose fp32 sum, changes from run to run for k > 2 (qwen3's 8)."""
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def mesh_family(device, mesh, cfg, train=FAMILY_TRAIN,
+                prefill=FAMILY_PREFILL, steps=FAMILY_STEPS):
+    """(c) one family on the mesh against the same calls unsharded, from
+    the same seeded weights: a train step's loss and every gradient leaf
+    (``accumulate_grads``), then a prefill and ``steps`` serve steps'
+    logits (``make_prefill_step``, ``make_serve_step``), all bit for bit
+    (both under ``_deterministic``).  Returns the launches under the
+    mesh."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import steps as S
+    from repro_torch.models.param import init_params
+
+    rows, seq = train
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (rows, seq + 1))) \
+        .to(device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.enc_layers:
+        batch["frames"] = torch.from_numpy(rng.randn(
+            rows, cfg.enc_frames, cfg.d_model).astype(np.float32) * 0.5) \
+            .to(device)
+    params = init_params(S.model_specs(cfg), 0, device)
+    ps, _ = S.make_shardings(cfg, mesh)
+    runs = {}
+    for sharded in (False, True):
+        m = mesh if sharded else None
+        p = shd.distribute(params, ps, mesh) if sharded else params
+        b = {k: shd.batch_rows(v, m) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        with shd.use_mesh(m), _deterministic():
+            (loss, _, aux, grads), train_l = _count_train(
+                device, cfg, lambda: S.accumulate_grads(p, b, cfg))
+            loss, aux, grads = float(shd.full(loss)), float(shd.full(aux)), \
+                _host(grads)
+
+            @torch.no_grad()
+            def decode():
+                pb = {"tokens": shd.batch_rows(batch["tokens"][:, :prefill],
+                                               m)}
+                if cfg.enc_layers:
+                    pb["frames"] = b["frames"]
+                logits, states = S.make_prefill_step(cfg)(p, pb)
+                outs = [shd.full(logits).float().cpu()]
+                serve = S.make_serve_step(cfg)
+                for t in range(prefill, prefill + steps):
+                    logits, states = serve(p, {
+                        "tokens": shd.batch_rows(batch["tokens"][:, t:t + 1],
+                                                 m),
+                        "positions": shd.batch_rows(torch.full(
+                            (rows, 1), t, device=device), m)}, states)
+                    outs.append(shd.full(logits).float().cpu())
+                return outs
+
+            logits, serve_l, _ = _run_counted(device, decode)
+        runs[sharded] = dict(loss=loss, aux=aux, grads=grads, logits=logits,
+                             launches={**train_l, **{
+                                 k: train_l.get(k, 0) + v
+                                 for k, v in serve_l.items()}},
+                             took_s=time.perf_counter() - t0)
+        del p, grads
+    got, plain = runs[True], runs[False]
+    diffs = dict(
+        loss=abs(got["loss"] - plain["loss"]),
+        aux=abs(got["aux"] - plain["aux"]),
+        grads=_max_diff(got["grads"], plain["grads"]),
+        logits=max(float((a - b).abs().max())
+                   for a, b in zip(got["logits"], plain["logits"])))
+    log(f"(c) {cfg.name} ({cfg.mixer}; {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.dtype} activations, {cfg.param_dtype} "
+        f"parameters) on the mesh: loss {got['loss']:.6f}, aux "
+        f"{got['aux']:.6f}; a {rows} x {seq} train step's loss and gradients"
+        f", a {prefill}-token prefill and {steps} steps' logits; largest "
+        f"difference from unsharded {diffs} | launches {got['launches']} "
+        f"(unsharded {plain['launches']}) | {plain['took_s']:.1f}s "
+        f"unsharded, {got['took_s']:.1f}s on the mesh")
+    if max(diffs.values()) > 0:
+        raise AssertionError(f"(c) {cfg.name}: the mesh run differs from "
+                             f"the unsharded: {diffs}")
+    if got["launches"] != plain["launches"]:
+        raise AssertionError(f"(c) {cfg.name}: launches {got['launches']}"
+                             f", unsharded {plain['launches']}")
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return got["launches"]
+
+
+def mesh_collectives(device, mesh):
+    """(d) ``compression.int8_allreduce_mean`` over the mesh's "data" axis
+    (one rank) against ``quantize_dequantize``, and ``pipelined_forward``
+    with S = 1 (a ``("pipe",)`` mesh of the rank) against the serial stack,
+    forward and gradients."""
+    import torch
+
+    from repro_torch.distributed import compression, pipeline_par
+    from repro_torch.launch.mesh import make_mesh
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(1 << 20, generator=gen, device=device)
+    red, err = compression.int8_allreduce_mean(
+        x, torch.zeros_like(x), group=mesh.get_group("data"))
+    want = compression.quantize_dequantize(x)
+    step = float(x.abs().max()) / 127
+    e_red = float((red - want).abs().max())
+    e_err = float((err - (x - want)).abs().max())
+    L, M, mb, n, d = PIPE
+    Ws = (torch.randn(L, d, d, generator=gen, device=device)
+          * d ** -0.5).requires_grad_(True)
+    xs = torch.randn(M, mb, n, d, generator=gen, device=device)
+    pmesh = make_mesh((1,), ("pipe",), device_type=device.type)
+    y = pipeline_par.pipelined_forward(lambda w, h: torch.tanh(h @ w), Ws,
+                                       xs, pmesh)
+    g, = torch.autograd.grad((y ** 2).sum(), Ws)
+    h = xs
+    for i in range(L):
+        h = torch.tanh(h @ Ws[i])
+    g_ref, = torch.autograd.grad((h ** 2).sum(), Ws)
+    e_y = float((y - h).abs().max())
+    e_g = float((g - g_ref).abs().max() / g_ref.abs().max())
+    log(f"(d) int8 error-feedback all-reduce over one rank ({x.numel():,} "
+        f"fp32): mean vs quantize_dequantize {e_red:.3g}, error {e_err:.3g} "
+        f"(one quantization step {step:.3g}); pipelined_forward S = 1, "
+        f"L {L}, M {M}: forward {e_y:.3g}, gradients rel {e_g:.3g}")
+    if e_red > 1e-6 * step * 127 or e_err > 1e-6 * step * 127 or \
+            e_y > 1e-5 or e_g > 1e-4:
+        raise AssertionError("(d) the compression or the pipeline "
+                             "disagrees with its oracle")
+
+
+def mesh_rest_phase(device, spec_fp32, exact, configs=None, families=None,
+                    spec_kw=None):
+    """Phase 17 under a one-rank ``(data, model)`` mesh: (a) ``mesh_spec``
+    and (b) ``mesh_cache`` for each mixer of ``configs`` (full hla-1b by
+    default) against phase 5's and 8 (a)'s results (``spec_fp32``,
+    ``exact``: by mixer), (c) ``mesh_family`` for each of ``families``,
+    (d) ``mesh_collectives``.  Returns the launches under the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+
+    t0 = time.perf_counter()
+    configs = configs or {m: get_config("hla-1b", mixer=m)
+                          for m in ("hla2", "ahla")}
+    families = families if families is not None else \
+        family_configs(get_config)
+    launches = {}
+    with _one_rank_group(device):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=device.type)
+        params = init_params(lm.lm_specs(next(iter(configs.values()))), 0,
+                             device)
+        for mixer, cfg in configs.items():
+            sub = mesh_spec(device, mesh, params, cfg, spec_fp32[mixer],
+                            **(spec_kw or MESH_SPEC))
+            sub2 = mesh_cache(device, mesh, params, cfg, exact[mixer])
+            for d in (sub, sub2):
+                _add(launches, d)
+        del params
+        t1 = time.perf_counter()
+        for name, cfg in families.items():
+            _add(launches, mesh_family(device, mesh, cfg))
+        t2 = time.perf_counter()
+        mesh_collectives(device, mesh)
+    log(f"phase 17 took {time.perf_counter() - t0:.1f}s ((a), (b) "
+        f"{t1 - t0:.1f}s, (c) {t2 - t1:.1f}s); launches under the mesh "
+        f"{launches}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -4343,8 +4786,8 @@ def main() -> int:
     ahla_launches, ahla_plain = serve(params, ahla_cfg, device)
     spec = spec_phase(params, cfg, device, plain["streams"])
     ahla_spec = spec_phase(params, ahla_cfg, device, ahla_plain["streams"])
-    frontend_phase(params, cfg, device, spec=True)
-    frontend_phase(params, ahla_cfg, device)
+    exact = {"hla2": frontend_phase(params, cfg, device, spec=True)[2],
+             "ahla": frontend_phase(params, ahla_cfg, device)[2]}
     del params
     train_launches, trained = train_phase(device)
     ahla_train_launches, ahla_trained = train_phase(device, mixer="ahla")
@@ -4358,10 +4801,13 @@ def main() -> int:
     hybrid = hybrid_phase(device, {a: get_config(a) for a in HYBRID})
     whisper = whisper_phase(device, get_config("whisper-small"))
     mesh_phase(device)
-    # phase 16 (c)'s dry runs: host work, beside phase 7, whose device times
-    # a busy host does not move; (a) and (b) time the host, so they run
-    # before on a quiet one
+    # phase 16 (c)'s dry runs: host work, beside phase 17 (whose checks are
+    # exact, not timed) and phase 7, whose device times a busy host does
+    # not move; 16 (a) and (b) time the host, so they run before on a quiet
+    # one
     dryruns = start_dryruns()
+    mesh_rest_phase(device, {"hla2": spec["fp32"], "ahla": ahla_spec["fp32"]},
+                    exact)
     kernels = time_kernels(device, chunk_abs, step_abs, launches)
     kernels.append(time_verify(device, "hla2", verify_abs,
                                cfg.n_layers * spec["ngram"]["rounds"]))

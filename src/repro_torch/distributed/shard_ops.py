@@ -31,9 +31,16 @@ current one, else the arguments' own (autograd runs a CUDA backward, a
 remat recompute included, in a thread of its own, outside the caller's
 ``use_mesh``).
 
-Under ``FakeTensorMode`` (the dry run, ``launch/dryrun.py``) ``fn`` is not
-called: ``fake(*local_args)`` gives outputs of the right shapes (and
-``FAKE_FLOPS`` counts the kernels' FLOPs, which no aten op carries).
+The plain records' chunk loops (``hla3``, ``hla3_paper``, ``linattn``),
+GLA's and RWKV-6's take the same dispatch: their inputs and states are
+(batch, head) rows too, and on a rank's block they run the one-device
+code.
+
+Under ``FakeTensorMode`` (the dry run, ``launch/dryrun.py``) a kernel's
+``fn`` is not called: ``fake(*local_args)`` gives outputs of the right
+shapes (and ``FAKE_FLOPS`` counts the kernels' FLOPs, which no aten op
+carries).  Without a ``fake`` (plain torch) ``fn`` runs on the fake
+blocks, and its aten ops count as any other.
 """
 
 from __future__ import annotations

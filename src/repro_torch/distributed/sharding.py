@@ -197,6 +197,16 @@ def batch_sharding(mesh, shape) -> tuple:
     return placements(spec_for(axes, shape, mesh), mesh)
 
 
+def batch_rows(x: torch.Tensor, mesh):
+    """A ``(batch, ...)`` tensor, the same on every rank (token ids, a
+    position), as the model reads it on ``mesh``: a batch-sharded DTensor,
+    each rank keeping its own rows.  Off-mesh (``mesh`` None) ``x`` as it
+    is."""
+    if mesh is None:
+        return x
+    return distribute_leaf(x, mesh, batch_sharding(mesh, x.shape))
+
+
 def local_block(x: torch.Tensor, mesh, pl) -> torch.Tensor:
     """This rank's block of the full tensor ``x`` under placements ``pl``
     (no communication).  Shards are even (``spec_for`` keeps only axes

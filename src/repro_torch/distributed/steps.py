@@ -8,7 +8,9 @@ On one device the steps take plain tensors.  Under a mesh
 ``make_shardings``' placements (``sharding.distribute``), moments with
 ZeRO-1's, a batch with ``sharding.batch_sharding``'s; the train step
 brings the gradients to ``grad_shardings`` before AdamW.  ``state_axes``
-and ``state_shardings_for`` place decode states (the serving pool), and
+and ``state_shardings_for`` place decode states (the serving pool;
+``place_states`` distributes a tree of them, as the prefill step does
+under a mesh), and
 ``input_specs`` / ``abstract_train_args`` build a cell's inputs as
 DTensors on the meta device for the dry run."""
 
@@ -201,19 +203,24 @@ def make_prefill_step(cfg):
     exactly, as in the reference (a decode step after it writes at the
     clamped start ``n - 1``, over the last key; ``whisper_apply`` and
     ``lm_apply`` given no states add a 64-token margin), streaming states
-    built from zero.  Decode continues from them (``make_serve_step``)."""
+    built from zero.  Decode continues from them (``make_serve_step``).
+    Under a mesh (``sharding.use_mesh``) the allocated states are placed
+    by ``state_shardings_for`` (``place_states``)."""
 
     def prefill_step(params, batch):
         B, n = batch["tokens"].shape
         dev = params["embed"]["embedding"].device
+        mesh = shd.current_mesh()
         if cfg.enc_layers:
-            states = whisper.whisper_init_states(cfg, B, dev, n)
+            states = place_states(
+                cfg, whisper.whisper_init_states(cfg, B, dev, n), mesh)
             logits, states, _ = whisper.whisper_apply(
                 params, batch["tokens"], batch["frames"], cfg,
                 states=states, mode="prefill")
         else:
             total = n + (cfg.vis_tokens or 0)  # a VLM prepends patch tokens
-            states = lm.lm_init_states(cfg, B, dev, total) \
+            states = place_states(cfg, lm.lm_init_states(cfg, B, dev, total),
+                                  mesh) \
                 if lm.needs_prealloc_states(cfg) else None
             logits, states, _ = lm.lm_apply(
                 params, batch["tokens"], cfg, states=states, mode="prefill",
@@ -263,6 +270,17 @@ def state_shardings_for(cfg, mesh, states):
     return [shd.placements(shd.spec_for(ax, x.shape, mesh), mesh)
             for x, ax in zip(state_tree.leaves(states),
                              state_tree.leaves(state_axes(cfg)))]
+
+
+def place_states(cfg, states, mesh):
+    """A decode-state tree of full tensors (the same on every rank: zeros,
+    or a host snapshot) as DTensors with ``state_shardings_for``'
+    placements, each rank keeping its block; off-mesh as it is."""
+    if mesh is None:
+        return states
+    pls = iter(state_shardings_for(cfg, mesh, states))
+    return state_tree.tree_map(
+        lambda x: shd.distribute_leaf(x, mesh, next(pls)), states)
 
 
 def _meta_dtensor(shape, dtype, mesh, pl):

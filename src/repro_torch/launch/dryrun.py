@@ -31,8 +31,11 @@ communication, and sets no environment.  What it reports:
 
 The HLA kernels take their shape-only path (``shard_ops.call_sharded``'s
 ``fake``); the real launch and the CPU's plain versions are untouched.
-A family whose sharded forward is not ported yet (MoE, Mamba, RWKV-6,
-GLA, whisper) raises ``NotImplementedError``.
+Every config lowers: the MoE layers' expert all-gathers over "model" and
+the batch-split sums of their aux loss, Mamba's channel-split sums, the
+plain records' and RWKV-6's and GLA's row-local chunk loops and
+whisper's encoder and cross-attention all count among the collectives
+and ops of rank 0.
 """
 
 from __future__ import annotations
@@ -63,9 +66,6 @@ from .mesh import make_mesh, make_production_mesh, mesh_summary
 CARD = "H100 80GB HBM3"
 
 _COLLECTIVES = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
-
-#: what no sharded forward runs yet (ROADMAP Queue 1 item 4)
-_NOT_PORTED = ("moe", "mamba", "rwkv6", "gla", "whisper")
 
 
 def _kind(func) -> str:
@@ -180,22 +180,6 @@ def _local_bytes(tree) -> int:
     return sum(_nbytes(x.to_local()) for x in tree)
 
 
-def _check_ported(cfg):
-    from ..models import lm
-
-    layout, _ = lm.stack_layout(cfg)
-    fams = {op.name for _, op, _ in layout}
-    if cfg.moe is not None:
-        fams.add("moe")
-    if cfg.enc_layers:
-        fams.add("whisper")
-    missing = sorted(fams & set(_NOT_PORTED))
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.mixer}) runs {', '.join(missing)}, whose "
-            "sharded forward is not ported yet: ROADMAP Queue 1 item 4")
-
-
 def lower_cell(arch, shape_name, mesh, *, mixer=None, microbatches=1,
                zero1=True, hla_impl=None, hla_chunk=None,
                gather_dtype=None, reduced=False):
@@ -225,7 +209,6 @@ def lower_cell(arch, shape_name, mesh, *, mixer=None, microbatches=1,
             f"gather_dtype {gather_dtype!r}: the port gathers a weight in "
             f"the activation dtype ({cfg.dtype}; dense_apply casts before "
             "DTensor's all-gather)")
-    _check_ported(cfg)
     shard_ops.FAKE_FLOPS.clear()
     live = _rank_mode()
     comm = CommDebugMode()

@@ -14,7 +14,16 @@ and on the CPU (plain versions of the kernels) with ``--device cpu``:
 Started by ``torchrun`` it serves on a ``("data", "model")`` mesh over all
 its ranks (``launch/mesh.py::mesh_from_env``): ``Engine(mesh=)`` with the
 parameters and slot states as DTensors, every rank producing the same
-streams (``--spec`` and the prefix cache stay single-device for now).
+streams, ``--spec``, ``--cache-mb`` and ``--stream`` included (the draft
+LM's pool on the mesh too; cache entries are whole host states, the same
+on every rank).  On 2 or 4 CPU ranks:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --reduced --device cpu --spec lm --cache-mb 1 --cache-chunk 16 \
+        --shared-prefix 32 --prompt-len 48 --stream
+
+and on cards the same without ``--reduced --device cpu`` (NCCL, a rank a
+card).
 
 ``--arch`` takes every arch of ``configs/`` (hla-1b, codeqwen1.5-7b,
 qwen2-72b, deepseek-67b, nemotron-4-15b, internvl2-2b, and the MoE

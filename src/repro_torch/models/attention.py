@@ -189,8 +189,7 @@ def attention_apply(p, x, cfg, *, positions=None,
         q = q.transpose(1, 2)
         out = call_sharded(functools.partial(flash_attention, causal=False),
                            q, _kv_for_heads(q, kc), _kv_for_heads(q, vc))
-        out = out.transpose(1, 2).reshape(B, n, H * dh)
-        out = constrain(out, ("batch", None, "q_heads_flat"))
+        out = constrain(_merge_heads(out), ("batch", None, "q_heads_flat"))
         return dense_apply(p["wo"], out), None
     if positions is None:
         positions = torch.arange(n, device=x.device)[None]
@@ -223,9 +222,18 @@ def attention_apply(p, x, cfg, *, positions=None,
                 q_, k_, v_, causal=causal, q_offset=off, kv_len=n_),
             q, _kv_for_heads(q, cache.k), _kv_for_heads(q, cache.v),
             q_offset, cache.length)
-    out = out.transpose(1, 2).reshape(B, n, H * dh)
-    out = constrain(out, ("batch", None, "q_heads_flat"))
+    out = constrain(_merge_heads(out), ("batch", None, "q_heads_flat"))
     return dense_apply(p["wo"], out), cache
+
+
+def _merge_heads(out):
+    """``(B, H, n, dh)`` -> ``(B, n, H * dh)``.  One token goes through its
+    row, a plain view laid out alike on one device and on a mesh, so the
+    output projection runs the same GEMM either way."""
+    B, H, n, dh = out.shape
+    if n == 1:
+        return out[:, :, 0].reshape(B, 1, H * dh)
+    return out.transpose(1, 2).reshape(B, n, H * dh)
 
 
 # --------------------------------------------------------------------------
@@ -279,8 +287,9 @@ def cross_kv_specs(cfg):
 def cross_kv_apply(p, enc_out, cfg):
     """The encoder output's K/V for cross-attention, each ``(B, Hk, ne,
     dh)`` in ``enc_out``'s dtype."""
-    B, ne, _ = enc_out.shape
     Hk, dh = cfg.n_kv_heads, cfg.head_dim
-    k = dense_apply(p["wk"], enc_out).reshape(B, ne, Hk, dh)
-    v = dense_apply(p["wv"], enc_out).reshape(B, ne, Hk, dh)
-    return k.transpose(1, 2), v.transpose(1, 2)
+    spec = ("batch", "kv_heads", None, None)
+    k = split_heads(dense_apply(p["wk"], enc_out), Hk, dh)
+    v = split_heads(dense_apply(p["wv"], enc_out), Hk, dh)
+    return constrain(k.transpose(1, 2), spec), constrain(v.transpose(1, 2),
+                                                         spec)

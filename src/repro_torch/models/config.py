@@ -81,15 +81,12 @@ class ModelConfig:
     moment_dtype: str = "float32"  # AdamW mu/nu (jamba-scale: bfloat16)
     grad_accum_dtype: str = "float32"  # microbatch gradient accumulator
     remat: str = "none"  # none | full (recompute a layer, or a hybrid
-    #   stack's whole group, in training)
+    #   stack's whole group, in training) | dots (keep the 2-d products'
+    #   outputs, recompute the rest: models/remat.py)
 
     def __post_init__(self):
-        if self.remat == "dots":
-            raise ValueError(
-                "remat='dots' (keep only the products' outputs) is not "
-                "ported yet; use 'none' or 'full'")
-        if self.remat not in ("none", "full"):
-            raise ValueError(f"remat must be 'none' or 'full', got "
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
                              f"{self.remat!r}")
 
     @property

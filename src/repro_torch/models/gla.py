@@ -35,8 +35,10 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.shard_ops import call_sharded
+from ..distributed.sharding import constrain
 from . import seq_op
-from .blocks import dense_apply, dense_specs
+from .blocks import dense_apply, dense_specs, split_heads
 from .param import Axes, Spec
 
 LOG_A_MIN = -2.5  # per-token floor: a_t >= e^-2.5 ~ 0.08 already "forget"
@@ -72,21 +74,26 @@ def gla_specs(cfg):
 
 
 def _project(p, x, cfg):
-    """``(q, k, v, log_a)``, each ``(B, H, n, dh)`` fp32."""
-    B, n, _ = x.shape
+    """``(q, k, v, z)``, each ``(B, H, n, dh)`` fp32 (on a mesh heads over
+    "model", as the reference's constraints), ``z`` the gate's logits
+    (``_log_gate`` makes ``log a`` of them)."""
     H, dh = cfg.n_heads, cfg.head_dim
+    spec = ("batch", "q_heads", None, None)
 
-    def heads(name):
-        return dense_apply(p[name], x).reshape(B, n, H, dh).transpose(1, 2)
+    def heads(y):
+        return constrain(split_heads(y, H, dh).transpose(1, 2), spec)
 
-    q = heads("wq").float() * dh**-0.5
-    k = heads("wk").float()
-    v = heads("wv").float()
+    q = heads(dense_apply(p["wq"], x)).float() * dh**-0.5
+    k = heads(dense_apply(p["wk"], x)).float()
+    v = heads(dense_apply(p["wv"], x)).float()
     z = dense_apply(p["wa_b"], dense_apply(p["wa_a"], x)).float()
     z = z + p["a0"].float()[None, None]
-    # log a = log sigmoid(z) / tau, clamped into the chunk-stable range
-    log_a = (F.logsigmoid(z) / GATE_TAU).clamp(LOG_A_MIN, -1e-6)
-    return q, k, v, log_a.reshape(B, n, H, dh).transpose(1, 2)
+    return q, k, v, heads(z)
+
+
+def _log_gate(z):
+    """log a = log sigmoid(z) / tau, clamped into the chunk-stable range."""
+    return (F.logsigmoid(z) / GATE_TAU).clamp(LOG_A_MIN, -1e-6)
 
 
 def gla_chunkwise(q, k, v, log_a, *, chunk: int = GLA_CHUNK,
@@ -147,10 +154,15 @@ def _gla_forward(p, x, cfg, *, state=None, want_state=True):
     resumed from ``state`` when given.  Returns ``(y, final GLAState)``."""
     del want_state  # the final state costs nothing beyond the last chunk
     B, n, _ = x.shape
-    q, k, v, log_a = _project(p, x, cfg)
-    o, st = gla_chunkwise(q, k, v, log_a, state=state)
+    q, k, v, z = _project(p, x, cfg)
+    # the gate and the chunk loop on each rank's (batch, head) rows
+    o, st = call_sharded(
+        lambda q_, k_, v_, z_, s_: gla_chunkwise(q_, k_, v_, _log_gate(z_),
+                                                 state=s_),
+        q, k, v, z, state)
     o = _out_norm(p, o).to(x.dtype)
     o = o.transpose(1, 2).reshape(B, n, cfg.n_heads * cfg.head_dim)
+    o = constrain(o, ("batch", None, "q_heads_flat"))
     return dense_apply(p["wo"], o), st
 
 
@@ -158,12 +170,15 @@ def _gla_step(p, x_t, state, cfg):
     """One-token decode over ``x_t (B, 1, d_model)``; ``state`` is updated
     in place.  Returns ``(y, state)``."""
     B = x_t.shape[0]
-    q, k, v, log_a = _project(p, x_t, cfg)  # (B, H, 1, dh)
-    new, o = gla_step(state, q[..., 0, :], k[..., 0, :], v[..., 0, :],
-                      log_a[..., 0, :])
+    q, k, v, z = _project(p, x_t, cfg)  # (B, H, 1, dh)
+    new, o = call_sharded(
+        lambda s_, q_, k_, v_, z_: gla_step(s_, q_, k_, v_, _log_gate(z_)),
+        state, q[..., 0, :], k[..., 0, :], v[..., 0, :], z[..., 0, :])
     state.S.copy_(new.S)
     o = _out_norm(p, o[..., None, :]).to(x_t.dtype)
-    o = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    # through the token's row: a plain view, alike on a mesh (the GEMM too)
+    o = o[:, :, 0].reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    o = constrain(o, ("batch", None, "q_heads_flat"))
     return dense_apply(p["wo"], o), state
 
 

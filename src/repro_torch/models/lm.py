@@ -23,9 +23,10 @@ the states it is given and only reads them, except a KV cache, which its
 ``forward`` fills in place; when any op of the stack has
 ``prealloc_state`` (attn, mamba), a prefill given no states allocates
 zero ones first.  ``positions`` reach an op only when it
-``needs_positions``.  ``cfg.remat == "full"`` recomputes a layer (a
+``needs_positions``.  ``cfg.remat`` ``"full"`` recomputes a layer (a
 hybrid stack: a whole group, the reference's remat unit) in the backward
-pass of ``mode="train"`` (``torch.utils.checkpoint``).  The MoE layers'
+pass of ``mode="train"``, ``"dots"`` all of it but the 2-d products'
+outputs (``models/remat.py``).  The MoE layers'
 load-balance losses are summed over the stack and ``lm_loss`` adds them to
 the cross-entropy, as the reference does.
 """
@@ -38,10 +39,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.utils.checkpoint import checkpoint
 
 from ..distributed.sharding import constrain
 from . import moe as moe_mod
+from . import remat as remat_mod
 from . import seq_op
 from .blocks import (
     embed_apply,
@@ -279,8 +280,7 @@ def _trunk(params, tokens, cfg, states, mode, positions=None,
         # room for the prompt and a margin of decode steps
         states = lm_init_states(cfg, x.shape[0], x.device, max_len=n + 64)
     # under remat a unit's activations are recomputed in backward
-    remat = (mode == "train" and cfg.remat == "full"
-             and torch.is_grad_enabled())
+    remat = remat_mod.active(cfg, mode)
     stack = params["groups" if hybrid else "layers"]
     ins, outs = [], []  # each unit's per-position states in and out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -291,8 +291,8 @@ def _trunk(params, tokens, cfg, states, mode, positions=None,
                  for key, _, _ in layout]
         mixes = [_mixer(op, cfg, mode, s, kw)
                  for (_, op, _), s in zip(layout, st_in)]
-        x, st_out, a = checkpoint(_unit, p, x, cfg, layout, mixes,
-                                  use_reentrant=False) \
+        x, st_out, a = remat_mod.run(_unit, p, x, cfg, layout, mixes,
+                                     cfg=cfg) \
             if remat else _unit(p, x, cfg, layout, mixes)
         if a is not None:
             aux = aux + a

@@ -26,9 +26,10 @@ reference; off-mesh it is the plain call.
 ``hla3`` (the exact third order), ``hla3_paper`` (Algorithm 4's chunk
 path, at gamma = 1 whatever ``cfg.hla.decay`` says: its ``decay_a`` goes
 unused) and ``linattn`` are plain torch at ``cfg.hla.chunk``, as the
-reference's are plain jnp.  Their steps are functional; the shared step
-wrapper writes the new state into the caller's tensors, since decode
-updates states in place.
+reference's are plain jnp, and go through ``call_sharded`` as well, so
+under a mesh each rank runs its (batch, head) rows.  Their steps are
+functional; the shared step wrapper writes the new state into the
+caller's tensors, since decode updates states in place.
 
 The core functions are imported by name: ``repro_torch.core`` does not
 re-export the front ends ``hla2``/``ahla``/``hla3``, so no submodule is
@@ -154,7 +155,10 @@ def _sublayer_step(core_step):
             if src is not dst:  # a functional core step: write its result
                 dst.copy_(src)
         o = _out_norm(p, o[:, :, None, :].to(x_t.dtype))
-        o = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.head_dim)
+        # (B, H, 1, dh) -> (B, 1, H * dh) through the one token's row: a
+        # plain view, laid out alike on one device and on a mesh, so the
+        # projection runs the same GEMM either way
+        o = o[:, :, 0].reshape(B, 1, cfg.n_heads * cfg.head_dim)
         return dense_apply(p["wo"], o), state
 
     return step
@@ -273,37 +277,54 @@ def _ahla_step(state, q1, k1, v1, gamma, hc):
         fake=_fake_step("ahla_step", costs._dec_ahla))
 
 
+# -- the plain records (no kernel) take the same row dispatch: their states
+# and inputs are (batch, head) rows too, so under a mesh each rank runs
+# its block and no DTensor rule meets the chunk loops
+
+
 def _hla3_fwd(q, k, v, gamma, hc, *, state, want_state):
-    return hla3_exact_chunkwise(q, k, v, gamma, chunk=hc.chunk,
-                                normalize=hc.normalize, eps=HLA_EPS,
-                                state=state)
+    return shard_ops.call_sharded(
+        lambda q_, k_, v_, g_, s_: hla3_exact_chunkwise(
+            q_, k_, v_, g_, chunk=hc.chunk, normalize=hc.normalize,
+            eps=HLA_EPS, state=s_),
+        q, k, v, gamma, state)
 
 
 def _hla3_step(state, q1, k1, v1, gamma, hc):
-    return hla3_exact_step(state, q1, k1, v1, gamma, normalize=hc.normalize,
-                           eps=HLA_EPS)
+    return shard_ops.call_sharded(
+        functools.partial(hla3_exact_step, normalize=hc.normalize,
+                          eps=HLA_EPS),
+        state, q1, k1, v1, gamma)
 
 
 def _hla3_paper_fwd(q, k, v, gamma, hc, *, state, want_state):
-    return hla3_paper_chunkwise(q, k, v, chunk=hc.chunk,
-                                normalize=hc.normalize, eps=HLA_EPS,
-                                state=state)
+    return shard_ops.call_sharded(
+        lambda q_, k_, v_, s_: hla3_paper_chunkwise(
+            q_, k_, v_, chunk=hc.chunk, normalize=hc.normalize, eps=HLA_EPS,
+            state=s_),
+        q, k, v, state)
 
 
 def _hla3_paper_step(state, q1, k1, v1, gamma, hc):
     # an n = 1 chunkwise call: the prefill's state layout and its gamma = 1
-    return hla3_paper_chunk_step(state, q1, k1, v1, normalize=hc.normalize,
-                                 eps=HLA_EPS)
+    return shard_ops.call_sharded(
+        functools.partial(hla3_paper_chunk_step, normalize=hc.normalize,
+                          eps=HLA_EPS),
+        state, q1, k1, v1)
 
 
 def _linattn_fwd(q, k, v, gamma, hc, *, state, want_state):
-    return linattn_chunkwise(q, k, v, gamma, chunk=hc.chunk,
-                             normalize=hc.normalize, eps=HLA_EPS, state=state)
+    return shard_ops.call_sharded(
+        lambda q_, k_, v_, g_, s_: linattn_chunkwise(
+            q_, k_, v_, g_, chunk=hc.chunk, normalize=hc.normalize,
+            eps=HLA_EPS, state=s_),
+        q, k, v, gamma, state)
 
 
 def _linattn_step(state, q1, k1, v1, gamma, hc):
-    return linattn_step(state, q1, k1, v1, gamma, normalize=hc.normalize,
-                        eps=HLA_EPS)
+    return shard_ops.call_sharded(
+        functools.partial(linattn_step, normalize=hc.normalize, eps=HLA_EPS),
+        state, q1, k1, v1, gamma)
 
 
 # Every HLA-family decode-state leaf is a (batch, heads, ...feature) row

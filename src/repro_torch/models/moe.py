@@ -16,6 +16,17 @@ style): a pair past its expert's capacity is dropped.
 The router runs in fp32 from fp32 weights (``lm.cast_params`` leaves its
 kernel fp32); the experts run in the activations' dtype.  The Switch
 load-balance loss is returned for the train loss.
+
+Under a mesh (``x`` a DTensor) the layer is an explicit block
+(``_moe_sharded``): the rows are gathered along everything but the batch
+split, so each rank routes and dispatches its own rows whole (the same
+code, so the expert ids and capacity drops are the single-device ones);
+the ``(B, E, C, d)`` buffer is cut to the rank's experts, the reference's
+``("batch", "experts", None, None)`` constraint with "experts" over
+"model"; the expert weights are gathered over the data axes only (FSDP)
+and stay split over "experts"; the experts' outputs are all-gathered over
+"model", so the combine sees every expert's output; and the aux loss's
+two means are summed over the batch split.
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .blocks import dense_specs
+from .blocks import dense_specs, fsdp_gather
 from .param import Spec
 
 #: the expert leaves of an MoE layer (cast to ``cfg.dtype`` by
@@ -133,26 +144,137 @@ def _combine(y, dest, gate_w, dtype):
 def moe_apply(p, x, cfg):
     """``x (B, n, d)``.  Returns ``(y (B, n, d) in x.dtype, aux_loss fp32
     scalar)``."""
-    B, n, d = x.shape
-    mc = cfg.moe
-    E = mc.n_experts
-    probs, gate_w, gate_e = route(p, x, cfg)
-    # Switch aux loss over all tokens: mean router probability times the
-    # share of tokens whose top-1 expert it is
-    me = probs.mean((0, 1))
-    top1 = gate_e[..., 0].reshape(-1)
-    # the top-1 one-hot's mean as a count over the tokens (no host sync)
-    ce = torch.zeros(E, device=x.device).index_add_(
-        0, top1, torch.ones(top1.shape, device=x.device)) / top1.numel()
-    aux = mc.aux_loss_coef * E * (me * ce).sum()
+    from torch.distributed.tensor import DTensor
 
-    C = capacity(cfg, n)
-    buf, dest = _dispatch(x, gate_e, E, C)
-    # experts lead: (E, B * C, d), one batched matmul over E per weight
-    xe = buf.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    if isinstance(x, DTensor):
+        return _moe_sharded(p, x, cfg)
+    out, probs, gate_e = _moe_rows(p, x, cfg)
+    return out, _aux(probs.mean((0, 1)), _top1_share(gate_e, cfg), cfg)
+
+
+def _top1_share(gate_e, cfg):
+    """``(E,)``: the share of the tokens whose top-1 expert is ``e`` (the
+    top-1 one-hot's mean as a count, no host sync)."""
+    top1 = gate_e[..., 0].reshape(-1)
+    return torch.zeros(cfg.moe.n_experts, device=gate_e.device).index_add_(
+        0, top1, torch.ones(top1.shape, device=gate_e.device)) / top1.numel()
+
+
+def _aux(me, ce, cfg):
+    """The Switch load-balance loss over all tokens: the mean router
+    probability times the share of tokens whose top-1 expert it is."""
+    mc = cfg.moe
+    return mc.aux_loss_coef * mc.n_experts * (me * ce).sum()
+
+
+def _all_experts(p, buf, cfg):
+    """``buf (B, E, C, d)`` -> every expert's output ``(B, E * C, d)``:
+    experts lead, one batched matmul over E per weight."""
+    B, E, C, d = buf.shape
+    xe = buf.transpose(0, 1).reshape(E, B * C, d)
     y = _expert_ffn(p, xe, cfg.mlp)
-    y = y.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
-    return _combine(y, dest, gate_w, x.dtype), aux
+    return y.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+
+
+def _moe_rows(p, x, cfg, experts=_all_experts, x_disp=None):
+    """Route, dispatch, run the experts and combine over the rows of a
+    plain ``x (B, n, d)`` (``x_disp``, the same values, feeds the
+    dispatch when given).  ``experts(p, buf, cfg)`` maps the dispatch
+    buffer to every expert's output.  Returns ``(out, probs, gate_e)``."""
+    B, n, d = x.shape
+    E = cfg.moe.n_experts
+    probs, gate_w, gate_e = route(p, x, cfg)
+    C = capacity(cfg, n)
+    buf, dest = _dispatch(x if x_disp is None else x_disp, gate_e, E, C)
+    y = experts(p, buf.reshape(B, E, C, d), cfg)
+    return _combine(y, dest, gate_w, x.dtype), probs, gate_e
+
+
+def _moe_sharded(p, x, cfg):
+    """``moe_apply`` of a DTensor ``x`` on its mesh, each rank on its own
+    batch rows and its own experts (the module docstring); where "model"
+    does not split the experts (one rank, or E not a multiple) each rank
+    runs them all, the one-device code on its rows.  Every ``to_local`` of
+    a tensor that the rank reads whole for its rows, or for its experts,
+    names its gradient's placements: ``Partial()`` where the ranks of a
+    mesh dim hold shares of a sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..distributed.sharding import contiguous_stride, mesh_axes
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    sizes = mesh_axes(mesh)
+    B, n, d = x.shape
+    E = cfg.moe.n_experts
+    # rows: the batch split kept, everything else gathered
+    rows = tuple(pl if pl.is_shard(0) else Replicate()
+                 for pl in x.placements)
+    row_dims = {i for i, pl in enumerate(rows) if pl.is_shard(0)}
+    ex_dim = next((i for i, a in enumerate(names) if a == "model"
+                   and sizes[a] > 1 and E % sizes[a] == 0), None)
+    full = (Replicate(),) * len(names)
+
+    def grads_of(pl_keep):
+        """Gradient placements: ``pl_keep`` on the rows' and the experts'
+        dims it names, Partial on a row dim it does not, Replicate
+        elsewhere."""
+        return tuple(
+            pl_keep[i] if pl_keep[i].is_shard() else
+            Partial() if i in row_dims else Replicate()
+            for i in range(len(names)))
+
+    local = {"router": {"kernel": p["router"]["kernel"].redistribute(
+        mesh, full).to_local(grad_placements=grads_of(full))}}
+    for key in EXPERT_LEAVES:
+        if key in p:
+            w = fsdp_gather(p[key])
+            local[key] = w.to_local(grad_placements=grads_of(w.placements))
+    xr = x.redistribute(mesh, rows)
+    x_route = xr.to_local()  # routing: the same on every non-row rank
+    if ex_dim is None:
+        out, probs, gate_e = _moe_rows(local, x_route, cfg)
+    else:
+        El = E // sizes[names[ex_dim]]
+        e0 = mesh.get_local_rank(ex_dim) * El
+        # the dispatch feeds only the rank's experts: a share of the sum
+        x_disp = xr.to_local(grad_placements=tuple(
+            Partial() if i == ex_dim else pl for i, pl in enumerate(rows)))
+
+        def experts(p_, buf, cfg_):
+            Bl, _, C, _ = buf.shape
+            # the reference's constrain(buf, ("batch", "experts", ...))
+            xe = buf[:, e0:e0 + El].transpose(0, 1).reshape(El, Bl * C, d)
+            y = _expert_ffn(p_, xe, cfg_.mlp)
+            y = y.reshape(El, Bl, C, d).transpose(0, 1).contiguous()
+            # every expert's output for the combine: an all-gather
+            shape = (B, E, C, d)
+            y_pl = tuple(Shard(1) if i == ex_dim else pl
+                         for i, pl in enumerate(rows))
+            return DTensor.from_local(
+                y, mesh, y_pl, run_check=False, shape=torch.Size(shape),
+                stride=contiguous_stride(shape)).redistribute(
+                    mesh, rows).to_local().reshape(Bl, E * C, d)
+
+        out, probs, gate_e = _moe_rows(local, x_route, cfg, experts,
+                                       x_disp=x_disp)
+    # the aux loss's two means over the global rows: each rank's share,
+    # summed over the batch split (1.0 times the local mean without one)
+    share = x_route.shape[0] / B
+    part = tuple(Partial() if i in row_dims else Replicate()
+                 for i in range(len(names)))
+
+    def global_mean(t):
+        return DTensor.from_local(t * share, mesh, part, run_check=False,
+                                  shape=t.shape, stride=t.stride()) \
+            .redistribute(mesh, full)
+
+    aux = _aux(global_mean(probs.mean((0, 1))),
+               global_mean(_top1_share(gate_e, cfg)), cfg)
+    shape = (B, n, d)
+    return DTensor.from_local(out, mesh, rows, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape)), aux
 
 
 def moe_dense_oracle(p, x, cfg):

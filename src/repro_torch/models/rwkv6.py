@@ -27,8 +27,16 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.shard_ops import call_sharded
+from ..distributed.sharding import constrain
 from . import seq_op
-from .blocks import dense_apply, dense_specs, layernorm_apply, layernorm_specs
+from .blocks import (
+    dense_apply,
+    dense_specs,
+    layernorm_apply,
+    layernorm_specs,
+    split_heads,
+)
 from .param import Axes, Spec
 
 LOGW_MIN = -2.5  # per-token log-decay floor (see the module docstring)
@@ -93,7 +101,9 @@ def _lerp(x, xs, mu):
 
 def _wkv_chunks(r, k, v, logw, u, S, chunk: int):
     """The chunked wkv recurrence over ``(B, H, n, dh)`` fp32 inputs from
-    the carry ``S (B, H, dh, dh)``.  Returns ``(y (B, H, n, dh), S)``.
+    the carry ``S (B, H, dh, dh)``, with the bonus ``u (B, H, dh)`` (every
+    input a (batch, head) row tensor: ``call_sharded`` runs it on a rank's
+    rows).  Returns ``(y (B, H, n, dh), S)``.
     Zero-padding the tail is exact: a padded log-decay of 0 keeps the
     carry, a padded key of 0 adds nothing."""
     n = r.shape[2]
@@ -103,7 +113,7 @@ def _wkv_chunks(r, k, v, logw, u, S, chunk: int):
         r, k, v, logw = (F.pad(t, (0, 0, 0, pad)) for t in (r, k, v, logw))
     tidx = torch.arange(w, device=r.device)
     mask = (tidx[:, None] > tidx[None, :]).float()  # j < t
-    ub = u[None, :, None]  # (1, H, 1, dh)
+    ub = u[:, :, None]  # (B, H, 1, dh)
     ys = []
     for c0 in range(0, n + pad, w):
         r_, k_, v_, lw_ = (t[:, :, c0:c0 + w] for t in (r, k, v, logw))
@@ -131,8 +141,9 @@ def rwkv6_time_mix(p, x, cfg, state: Optional[RWKVState],
     H = d // dh
     xs = _shift(x, state.x_prev_t if state is not None else None)
 
-    def heads(t):
-        return t.reshape(B, n, H, dh).transpose(1, 2).float()
+    def heads(t):  # on a mesh heads over "model" (the reference's)
+        return constrain(split_heads(t, H, dh).transpose(1, 2),
+                         ("batch", "q_heads", None, None)).float()
 
     r = heads(dense_apply(p["wr"], _lerp(x, xs, p["mu_r"])))
     k = heads(dense_apply(p["wk"], _lerp(x, xs, p["mu_k"])))
@@ -147,14 +158,17 @@ def rwkv6_time_mix(p, x, cfg, state: Optional[RWKVState],
     logw = heads(logw.clamp(LOGW_MIN, -1e-6))
     S0 = state.S.float() if state is not None else \
         x.new_zeros((B, H, dh, dh), dtype=torch.float32)
-    y, S = _wkv_chunks(r, k, v, logw, p["u"].float(), S0, chunk)
+    u = p["u"].float()[None].expand(B, H, dh)
+    y, S = call_sharded(
+        lambda *a: _wkv_chunks(*a, chunk), r, k, v, logw, u, S0)
 
     # per-head GroupNorm (population variance) and the gate
     mu = y.mean(-1, keepdim=True)
     var = (y - mu).square().mean(-1, keepdim=True)
     yn = (y - mu) * torch.rsqrt(var + GN_EPS)
     yn = yn * p["gn_scale"][None, :, None] + p["gn_bias"][None, :, None]
-    yn = yn.transpose(1, 2).reshape(B, n, d).to(x.dtype)
+    yn = constrain(yn.transpose(1, 2).reshape(B, n, d).to(x.dtype),
+                   ("batch", None, "q_heads_flat"))
     out = dense_apply(p["wo"], yn * F.silu(g))
     x_prev_c = state.x_prev_c if state is not None else \
         torch.zeros_like(x[:, :1])

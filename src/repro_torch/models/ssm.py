@@ -124,20 +124,33 @@ def mamba_apply(p, x, cfg, state: Optional[MambaState] = None,
                 chunk: int = MAMBA_CHUNK):
     """``x (B, n, d)``, resumed from ``state`` when given (only read).
     Returns ``(y (B, n, d), MambaState)``: ``conv`` in ``x``'s dtype, ``h``
-    fp32."""
-    B, n, d = x.shape
-    mc = cfg.mamba
-    d_in = mc.expand * d
-    ds = mc.d_state
+    fp32.  A DTensor ``x`` runs ``_mamba_sharded`` on its mesh."""
+    from torch.distributed.tensor import DTensor
 
+    if isinstance(x, DTensor):
+        return _mamba_sharded(p, x, cfg, state, chunk)
+    d_in = cfg.mamba.expand * x.shape[-1]
     xz = dense_apply(p["in_proj"], x)
-    xin, z = xz[..., :d_in], xz[..., d_in:]
+    y, st = _mamba_core(p, xz[..., :d_in], xz[..., d_in:], cfg, state,
+                        chunk, lambda t: t)
+    return dense_apply(p["out_proj"], y), st
+
+
+def _mamba_core(p, xin, z, cfg, state, chunk, reduce):
+    """Everything between the in and out projections, per channel: the
+    causal conv, ``x_proj`` (whose product over the channels ``reduce``
+    completes: the identity on one device, a sum over the channel split
+    on a mesh), ``dt_proj``, the chunked scan, ``D`` and the gate.
+    ``xin``, ``z`` ``(B, n, channels)``.  Returns ``(y (B, n, channels)``
+    before ``out_proj``, ``MambaState)``."""
+    B, n, d_in = xin.shape
+    ds = cfg.mamba.d_state
     xc, conv_tail = _causal_depthwise_conv(
         xin, p["conv_w"], p["conv_b"],
         prepend=state.conv if state is not None else None)
     xc = F.silu(xc)
 
-    proj = dense_apply(p["x_proj"], xc)
+    proj = reduce(dense_apply(p["x_proj"], xc))
     dt_rank = p["dt_proj"]["kernel"].shape[0]
     Bc = proj[..., dt_rank:dt_rank + ds].float()
     Cc = proj[..., dt_rank + ds:].float()
@@ -152,7 +165,7 @@ def mamba_apply(p, x, cfg, state: Optional[MambaState] = None,
     else:
         xp = xf
     h = state.h.float() if state is not None else \
-        x.new_zeros((B, d_in, ds), dtype=torch.float32)
+        xin.new_zeros((B, d_in, ds), dtype=torch.float32)
     ys = []
     for c0 in range(0, n + pad, w):
         args = (h,) + tuple(t[:, c0:c0 + w] for t in (dt, Bc, Cc, xp)) + (A,)
@@ -164,9 +177,104 @@ def mamba_apply(p, x, cfg, state: Optional[MambaState] = None,
         ys.append(y)
     y = torch.cat(ys, 1)[:, :n]
     y = y + xf * p["D"].float()
-    y = y.to(x.dtype) * F.silu(z)
-    out = dense_apply(p["out_proj"], y)
-    return out, MambaState(conv=conv_tail.to(x.dtype), h=h)
+    y = y.to(xin.dtype) * F.silu(z)
+    return y, MambaState(conv=conv_tail.to(xin.dtype), h=h)
+
+
+def _mamba_sharded(p, x, cfg, state, chunk):
+    """``mamba_apply`` of a DTensor ``x``: the reference's constraints,
+    "inner" (d_inner) over "model", as an explicit block.  Each rank takes
+    its batch rows whole and its block of channels: the in projection's
+    columns of those channels (of the gathered kernel), the conv taps,
+    ``dt_proj``, ``A_log`` and ``D`` of them, the state's block; the conv
+    and the scan are local per channel; ``x_proj`` and ``out_proj``
+    contract over the channels, so their products are summed over the
+    channel split (an all-reduce each).  Every ``to_local`` names its
+    gradient's placements (``Partial()`` where the ranks of a mesh dim
+    hold shares of a sum)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..distributed.sharding import contiguous_stride, mesh_axes
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    sizes = mesh_axes(mesh)
+    nd = len(names)
+    d_in = cfg.mamba.expand * cfg.d_model
+    rows = tuple(pl if pl.is_shard(0) else Replicate()
+                 for pl in x.placements)
+    row_dims = {i for i, pl in enumerate(rows) if pl.is_shard(0)}
+    ch = next((i for i, a in enumerate(names) if a == "model"
+               and sizes[a] > 1 and d_in % sizes[a] == 0), None)
+    Dl = d_in // sizes[names[ch]] if ch is not None else d_in
+    c0 = mesh.get_local_rank(ch) * Dl if ch is not None else 0
+
+    def local(w, dim):
+        """``w``'s block of the rank's channels (its dim ``dim``; None:
+        the whole of ``w``, of which the rank reads its channels)."""
+        want = tuple(Shard(dim) if i == ch and dim is not None
+                     else Replicate() for i in range(nd))
+        grads = tuple(want[i] if want[i].is_shard() else Partial()
+                      if i in row_dims or i == ch else Replicate()
+                      for i in range(nd))
+        return w.redistribute(mesh, want).to_local(grad_placements=grads)
+
+    def wrap(t, pl):
+        shape = _global_shape(t.shape, pl, mesh)
+        return DTensor.from_local(t, mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
+
+    part = tuple(Partial() if i == ch else rows[i] for i in range(nd))
+
+    def reduce(t):
+        """A product over the channel split, summed; each rank reads the
+        sum for its own channels, so its gradient is a share too."""
+        if ch is None:
+            return t
+        return wrap(t, part).redistribute(mesh, rows).to_local(
+            grad_placements=part)
+
+    xl = x.redistribute(mesh, rows).to_local(grad_placements=tuple(
+        Partial() if i == ch else pl for i, pl in enumerate(rows)))
+    w_in = local(p["in_proj"]["kernel"], None).to(xl.dtype)
+    cols = torch.cat([torch.arange(c0, c0 + Dl, device=xl.device),
+                      torch.arange(d_in + c0, d_in + c0 + Dl,
+                                   device=xl.device)])
+    xz = xl @ w_in.index_select(1, cols)
+    pl_local = {
+        "conv_w": local(p["conv_w"], 1), "conv_b": local(p["conv_b"], 0),
+        "x_proj": {"kernel": local(p["x_proj"]["kernel"], 0)},
+        "dt_proj": {"kernel": local(p["dt_proj"]["kernel"], 1),
+                    "bias": local(p["dt_proj"]["bias"], 0)},
+        "A_log": local(p["A_log"], 0), "D": local(p["D"], 0),
+    }
+
+    def state_pl(dim):
+        return tuple(rows[i] if i in row_dims else Shard(dim) if i == ch
+                     else Replicate() for i in range(nd))
+
+    st = None
+    if state is not None:
+        st = MambaState(
+            conv=state.conv.redistribute(mesh, state_pl(2)).to_local(),
+            h=state.h.redistribute(mesh, state_pl(1)).to_local())
+    y, new = _mamba_core(pl_local, xz[..., :Dl], xz[..., Dl:], cfg, st,
+                         chunk, reduce)
+    out = wrap(y @ local(p["out_proj"]["kernel"], 0).to(y.dtype),
+               part).redistribute(mesh, rows)
+    return out, MambaState(conv=wrap(new.conv, state_pl(2)),
+                           h=wrap(new.h, state_pl(1)))
+
+
+def _global_shape(shape, pl, mesh):
+    """The global shape of a local block ``shape`` under placements
+    ``pl`` (even shards)."""
+    out = list(shape)
+    for size, p in zip(mesh.shape, pl):
+        if p.is_shard():
+            out[p.dim] *= int(size)
+    return tuple(out)
 
 
 def mamba_init_state(cfg, B, device, dtype=torch.float32) -> MambaState:

@@ -26,19 +26,25 @@ leaf ``(n_layers, B, ...)``.  A prefill ignores the self state of a
 streaming op (it starts from zero, as the reference's) and returns the
 cross K/V it computed from the encoder, in the activation dtype; a decode
 step updates the self state in place and reads the cross K/V.  Layers are
-a Python loop over the stacked parameters; ``cfg.remat == "full"``
-recomputes each encoder and decoder layer in backward
-(``torch.utils.checkpoint``).  ``whisper_state_axes`` is the states'
-sharding data (the reference's); whisper's sharded forward waits for the
-next multi-GPU slice (ROADMAP Queue 1 item 4).
+a Python loop over the stacked parameters; ``cfg.remat`` ``"full"``
+recomputes each encoder and decoder layer in backward, ``"dots"`` all of
+it but the 2-d products' outputs (``models/remat.py``).  Under a mesh
+(``sharding.use_mesh``, DTensor parameters, states placed by
+``whisper_state_axes``) each layer constrains its residual stream to
+``("batch", "seq", "embed")``, as the reference's scan bodies do; the
+attention's heads, the cross K/V's among them, go over "model" and every
+kernel and ``flash_attention`` call runs on a rank's (batch, head) rows.
+On the CPU: ``tests/test_torch_distributed_families.py`` (4 gloo ranks);
+on the card ``chip_smoke.py`` phase 17 (one rank).
 """
 
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import constrain
 from . import attention as attn_mod
+from . import remat as remat_mod
 from . import seq_op
 from .blocks import (
     embed_apply,
@@ -109,6 +115,7 @@ def whisper_specs(cfg):
 
 
 def _enc_layer(p, x, cfg):
+    x = constrain(x, ("batch", "seq", "embed"))
     h = layernorm_apply(p["ln1"], x, cfg.norm_eps)
     y, _ = attn_mod.attention_apply(p["attn"], h, cfg, causal=False,
                                     use_rope=False)
@@ -124,10 +131,10 @@ def whisper_encode(params, frames, cfg):
     ne = frames.shape[1]
     x = frames.to(act) + sinusoidal_pos(ne, cfg.d_model, act,
                                         frames.device)[None]
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    remat = remat_mod.active(cfg)
     for l in range(cfg.enc_layers):
         p = _layer(params["enc_layers"], l)
-        x = checkpoint(_enc_layer, p, x, cfg, use_reentrant=False) \
+        x = remat_mod.run(_enc_layer, p, x, cfg, cfg=cfg) \
             if remat else _enc_layer(p, x, cfg)
     return layernorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
@@ -138,6 +145,7 @@ def _dec_layer(p, x, enc_out, st, cfg, op, mode, positions):
     op's new state; None in training), the cross K/V computed from
     ``enc_out`` or, in decode, read from ``st``."""
     key = _self_key(op)
+    x = constrain(x, ("batch", "seq", "embed"))
     h = layernorm_apply(p["ln1"], x, cfg.norm_eps)
     if not op.streaming:  # softmax: whisper-local, no RoPE
         y, new_self = attn_mod.attention_apply(
@@ -184,15 +192,13 @@ def whisper_decode(params, tokens, enc_out, cfg, *, states=None,
     pos_idx = positions[0].clamp(0, table.shape[0] - 1).long()
     x = x + table[pos_idx].to(act)[None]
     op = _self_op(cfg)
-    remat = mode == "train" and cfg.remat == "full" and \
-        torch.is_grad_enabled()
+    remat = remat_mod.active(cfg, mode)
     outs = []
     for l in range(cfg.n_layers):
         p = _layer(params["dec_layers"], l)
         st = None if states is None else tree_map(lambda s: s[l], states)
         args = (p, x, enc_out, st, cfg, op, mode, positions)
-        x, new_self, ck, cv = checkpoint(_dec_layer, *args,
-                                         use_reentrant=False) \
+        x, new_self, ck, cv = remat_mod.run(_dec_layer, *args, cfg=cfg) \
             if remat else _dec_layer(*args)
         if mode == "prefill":
             outs.append((new_self, ck, cv))

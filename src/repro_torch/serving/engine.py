@@ -60,15 +60,18 @@ Twin of ``repro/serving/engine.py`` on the port's in-place state pool:
 * **Sharded serving** (``mesh=``, the reference's): the parameters are
   DTensors on the mesh (``distributed.sharding.distribute``), the slot
   states get ``distributed.steps.state_shardings_for`` placements (slots
-  over "data", heads over "model"), and admission and the decode block
-  run inside ``sharding.use_mesh``, where every HLA kernel call runs on
-  each rank's own (batch, head) row block
+  over "data", heads over "model"), and admission, the decode block and
+  the speculative round run inside ``sharding.use_mesh``, where every HLA
+  kernel call runs on each rank's own (batch, head) row block
   (``distributed.shard_ops.call_sharded``).  The tokens each step reads
   are batch-sharded; the logits are gathered before sampling, so every
-  rank samples the same tokens from the same generator and holds the
-  same streams.  Speculative decoding and the prefix cache under a mesh
-  wait for the next multi-GPU slice (ROADMAP Queue 1 item 4) and raise
-  ``NotImplementedError``.
+  rank samples the same tokens from the same generator and holds the same
+  streams, accept counts and committed tokens.  A speculative engine's
+  ``HLADrafter`` places its own pool the same way; the verify pass runs
+  on the pool's DTensor states and the rollback replays on them.  The
+  prefix cache holds whole host states, the same on every rank (a
+  snapshot gathers a slot's blocks), so its keys and checksums agree, and
+  a hit is placed onto the pool's layout whatever mesh stored it.
 """
 
 from __future__ import annotations
@@ -239,10 +242,6 @@ class Engine:
                  cache: Optional[PrefixCache] = None,
                  sched: Optional[SchedulerConfig] = None, mesh=None):
         device = torch.device(device)
-        if mesh is not None and (spec is not None or cache is not None):
-            raise NotImplementedError(
-                "speculative decoding and the prefix cache under a mesh wait "
-                "for the next multi-GPU slice (ROADMAP Queue 1 item 4)")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') needs a CUDA device")
         check_servable(cfg, spec)
@@ -350,7 +349,8 @@ class Engine:
         self.drafter = None
         if spec is not None:
             self.drafter = build_drafter(spec, slots=slots, sampling=sampling,
-                                         target_cfg=cfg, device=device)
+                                         target_cfg=cfg, device=device,
+                                         mesh=mesh)
             if self.drafter.vocab is not None and \
                     self.drafter.vocab != cfg.vocab:
                 raise ValueError(
@@ -358,20 +358,13 @@ class Engine:
                     f"{cfg.vocab}: draft ids would index the target "
                     "embedding out of range")
             self._spec_round_fn = make_spec_round(
-                cfg, sampling, draft_probs=self.drafter.emits_probs)
+                cfg, sampling, draft_probs=self.drafter.emits_probs,
+                mesh=mesh)
 
     def _mesh_ctx(self):
         """The engine's mesh as the current one (the mixers' row dispatch
         and the logical-axis constraints read it); off-mesh a no-op."""
         return shd.use_mesh(self.mesh)
-
-    def _rows(self, x):
-        """A batch of token rows as the model reads it: on a mesh a
-        batch-sharded DTensor (each rank keeps its own rows)."""
-        if self.mesh is None:
-            return x
-        return shd.distribute_leaf(x, self.mesh,
-                                   shd.batch_sharding(self.mesh, x.shape))
 
     # -- fault injection ----------------------------------------------------
 
@@ -470,19 +463,25 @@ class Engine:
                 if found is not None:
                     hit_len, host_state = found
                     done = hit_len
-                    carry = _to(host_state, self.device, non_blocking=True)
+                    # a whole host state: placed as the decode states
+                    carry = steps_mod.place_states(self.cfg, _to(
+                        host_state, self.device, non_blocking=True),
+                        self.mesh)
                 aligned = self.cache.aligned_len(L)
                 if aligned > done:
                     # advance to the chunk-aligned boundary first, so its
                     # state can be cached; both calls together cover the
                     # prompt once
-                    _, carry = lm.lm_prefill(self.params, ids[:, done:aligned],
-                                             self.cfg, states=carry)
+                    with self._mesh_ctx():
+                        _, carry = lm.lm_prefill(
+                            self.params,
+                            shd.batch_rows(ids[:, done:aligned], self.mesh),
+                            self.cfg, states=carry)
                     done = insert_at = aligned
             with self._mesh_ctx():
                 last, states = lm.lm_prefill(
-                    self.params, self._rows(ids[:, done:]), self.cfg,
-                    states=carry)
+                    self.params, shd.batch_rows(ids[:, done:], self.mesh),
+                    self.cfg, states=carry)
             last = shd.full(last)
             first = sample(last, self.gen, scfg)[0]
             flags = [first,
@@ -490,8 +489,10 @@ class Engine:
             if insert_at:
                 flags.append(all_finite(carry).long())
                 # the boundary state's host copy, queued before the sync
-                # below so it rides it (pinned memory when from the card)
-                snap = _to(carry, "cpu", non_blocking=True, copy=True)
+                # below so it rides it (pinned memory when from the card);
+                # on a mesh the whole state, gathered from the ranks' blocks
+                snap = tree_map(lambda x: shd.full(x).to(
+                    "cpu", non_blocking=True, copy=True), carry)
             self.pool.write_slot(slot, states)
             # sync-point: admission TTFT endpoint (token + health flags, and
             # the boundary snapshot queued before it)
@@ -697,7 +698,7 @@ class Engine:
             for _ in range(n_steps):
                 with self._mesh_ctx():
                     logits, _, _ = lm.lm_apply(
-                        self.params, self._rows(tok), self.cfg,
+                        self.params, shd.batch_rows(tok, self.mesh), self.cfg,
                         states=self.pool.states, mode="decode")
                 logits = shd.full(logits)
                 if sel is None:

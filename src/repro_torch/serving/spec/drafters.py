@@ -17,10 +17,13 @@ A ``Drafter`` follows the engine's slot lifecycle (``admit`` / ``commit`` /
   reference discards them for free, its states being immutable).
 
 ``propose`` returns device tensors (the engine feeds them straight into the
-verify block) or numpy arrays.  The reference's ``HLADrafter(mesh=)`` (a
-draft model sharded over devices) and the speculative round under a mesh
-come with the next multi-GPU slice (ROADMAP Queue 1 item 4):
-``Engine(mesh=)`` refuses ``spec`` until then.
+verify block) or numpy arrays.  ``HLADrafter(mesh=)`` (the reference's) is
+the draft model on the engine's mesh: its parameters are DTensors, its
+pool placed by ``distributed.steps.state_shardings_for`` (slots over
+"data", heads over "model"; the copy its draft steps run on keeps those
+placements), its prefills and decode steps run inside
+``sharding.use_mesh`` with the kernels through ``call_sharded``, and the
+logits are gathered before sampling, so every rank drafts the same tokens.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...distributed import sharding as shd
 from ...models import lm, seq_op
-from ...models.param import init_params
+from ...models.param import init_params, leaf_paths
 from ...models.state_tree import tree_map
 from ..sampling import SamplingConfig, probs, sample
 from ..state_pool import StatePool, to_device
@@ -143,13 +147,17 @@ class HLADrafter(Drafter):
     ``stats`` counts the drafter's kernel work: ``admissions`` (prefills,
     one chunk-kernel launch per layer each) and ``steps`` (decode steps,
     one step-kernel launch per layer each: catch-up and draft steps).
+
+    On ``mesh`` ``params`` (plain tensors, the same on every rank, or
+    DTensors) are placed by ``sharding.param_shardings`` and the pool by
+    the decode states' placements.
     """
 
     full_width = True
 
     def __init__(self, cfg, params=None, *, slots: int, k: int,
                  sampling: SamplingConfig = SamplingConfig(), seed: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if not seq_op.op_for(cfg).streaming:
             raise ValueError(f"HLADrafter needs a streaming-state op, got "
                              f"{cfg.mixer!r}")
@@ -160,25 +168,41 @@ class HLADrafter(Drafter):
         self.emits_probs = sampling.method != "greedy"
         self.vocab = cfg.vocab
         self.device = device
+        self.mesh = mesh
         if params is None:
             params = init_params(lm.lm_specs(cfg), seed, device)
+        pool_pl = None
+        if mesh is not None:
+            from torch.distributed.tensor import DTensor
+
+            from ...distributed import steps as steps_mod
+
+            if not any(isinstance(x, DTensor)
+                       for _, x in leaf_paths(params)):
+                params = shd.distribute(params, shd.param_shardings(
+                    lm.lm_specs(cfg), mesh), mesh)
+            pool_pl = steps_mod.state_shardings_for(
+                cfg, mesh, lm.lm_init_states(cfg, slots, "meta"))
         self.params = lm.cast_params(params, cfg)
         self.pool = StatePool(lambda n: lm.lm_init_states(cfg, n, device),
-                              slots)
+                              slots, mesh=mesh, placements=pool_pl)
         self.last = np.zeros(slots, np.int64)
         # committed tokens the draft state has not consumed yet (at most
         # k+1 per slot between rounds: a round commits at most k+1)
         self._pending: List[List[int]] = [[] for _ in range(slots)]
         self.gen = torch.Generator(device=device)
         self.gen.manual_seed(seed + 1)
-        self._consume = make_replay(cfg)  # the rollback's masked consume
+        # the rollback's masked consume
+        self._consume = make_replay(cfg, mesh=mesh)
         self.stats = dict(admissions=0, steps=0)
 
     @torch.no_grad()
     def admit(self, slot, tokens):
         toks = [int(t) for t in tokens]
         prompt = to_device([toks[:-1]], self.device)
-        _, state = lm.lm_prefill(self.params, prompt, self.cfg)
+        with shd.use_mesh(self.mesh):
+            _, state = lm.lm_prefill(
+                self.params, shd.batch_rows(prompt, self.mesh), self.cfg)
         self.pool.write_slot(slot, state)
         self.stats["admissions"] += 1
         self.last[slot] = toks[-1]
@@ -212,14 +236,17 @@ class HLADrafter(Drafter):
         steps = self._consume(self.params, self.pool,
                               to_device(pending, self.device),
                               pend_len)
-        # 2) k draft steps on a copy of the pool: its states are dropped
+        # 2) k draft steps on a copy of the pool (its placements kept):
+        # its states are dropped
         states = tree_map(torch.clone, self.pool.states)
         tok = to_device(self.last[:, None], self.device)
         drafts, qs = [], []
         for _ in range(k):
-            logits, _, _ = lm.lm_apply(self.params, tok, self.cfg,
-                                       states=states, mode="decode")
-            lg = logits[:, -1]
+            with shd.use_mesh(self.mesh):
+                logits, _, _ = lm.lm_apply(
+                    self.params, shd.batch_rows(tok, self.mesh), self.cfg,
+                    states=states, mode="decode")
+            lg = shd.full(logits[:, -1])
             nxt = sample(lg, self.gen, self.sampling)
             if self.emits_probs:
                 qs.append(probs(lg, self.sampling))
@@ -236,11 +263,11 @@ class HLADrafter(Drafter):
 
 
 def build_drafter(spec, *, slots: int, sampling: SamplingConfig,
-                  target_cfg=None, device="cuda") -> Drafter:
+                  target_cfg=None, device="cuda", mesh=None) -> Drafter:
     """Resolve ``SpecConfig.drafter`` to an instance: a ready ``Drafter``,
     ``"ngram"``, or ``"lm"`` (``spec.draft_arch`` from the configs
     registry, reduced unless ``spec.draft_reduced`` is False, random
-    weights from ``spec.draft_seed``).  With ``target_cfg`` the draft model
+    weights from ``spec.draft_seed``; on ``mesh``, the engine's).  With ``target_cfg`` the draft model
     takes the target's vocabulary (a draft must propose the target's token
     ids; the reference refuses the pair instead, so its reduced draft
     serves only a reduced target) and a draft no smaller than the target
@@ -267,5 +294,5 @@ def build_drafter(spec, *, slots: int, sampling: SamplingConfig,
                     "registry entry", stacklevel=2)
         return HLADrafter(cfg, None, slots=slots, k=spec.k,
                           sampling=sampling, seed=spec.draft_seed,
-                          device=device)
+                          device=device, mesh=mesh)
     raise ValueError(f"unknown drafter {spec.drafter!r}")

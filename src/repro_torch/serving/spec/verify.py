@@ -62,6 +62,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...distributed import sharding as shd
 from ...models import lm
 from ...models.state_tree import leaves
 from ..sampling import SamplingConfig, draw, probs
@@ -73,7 +74,8 @@ def _leading_run(ok: torch.Tensor) -> torch.Tensor:
     return torch.cumprod(ok.long(), dim=1).sum(1)
 
 
-def make_verify(cfg, scfg: SamplingConfig, *, draft_probs: bool = False):
+def make_verify(cfg, scfg: SamplingConfig, *, draft_probs: bool = False,
+                mesh=None):
     """The verify step.  Returns ``verify(params, states, tok_block,
     generator, q_probs=None) -> (packed, new_states)``: ``tok_block (slots,
     k+1) = [last committed, drafts]``; ``packed (slots, k+2)`` int64 holds
@@ -81,11 +83,15 @@ def make_verify(cfg, scfg: SamplingConfig, *, draft_probs: bool = False):
     (the first ``m + 1`` count); ``new_states`` have consumed the whole
     block and ``states`` are left as they were.  ``q_probs (slots, k,
     vocab)``, the drafter's warped laws, is read only under
-    ``draft_probs``; greedy acceptance never reads it."""
+    ``draft_probs``; greedy acceptance never reads it.  On ``mesh`` the
+    states are DTensors and the block runs as batch-sharded rows; the
+    logits are gathered, so every rank accepts and commits alike."""
 
     def verify(params, states, tok_block, generator, q_probs=None):
-        logits, new_states = lm.lm_score_block(params, tok_block, cfg,
-                                               states=states)
+        with shd.use_mesh(mesh):
+            logits, new_states = lm.lm_score_block(
+                params, shd.batch_rows(tok_block, mesh), cfg, states=states)
+        logits = shd.full(logits)
         drafts = tok_block[:, 1:]
         if scfg.method == "greedy":
             # accepted drafts ARE the argmax predictions, so ``preds`` is
@@ -123,7 +129,7 @@ def make_verify(cfg, scfg: SamplingConfig, *, draft_probs: bool = False):
     return verify
 
 
-def make_replay(cfg):
+def make_replay(cfg, *, mesh=None):
     """The masked serial consume behind rollback AND the draft model's
     catch-up.  Returns ``replay(params, pool, toks, n_consume) -> steps``:
     slot ``s`` of ``pool`` consumes the first ``n_consume[s]`` tokens of
@@ -131,7 +137,8 @@ def make_replay(cfg):
     place, every row, the pool's full batch), and every other step of it is
     undone by a copy of the slot taken before that step.  ``n_consume`` is
     a host sequence; ``steps`` is the number of decode steps run, its
-    largest entry.
+    largest entry.  On ``mesh`` the pool's states are DTensors and each
+    step's tokens batch-sharded rows.
     """
 
     def replay(params, pool, toks, n_consume) -> int:
@@ -142,8 +149,9 @@ def make_replay(cfg):
             for s, n in enumerate(n_consume):
                 if n == j:  # consumed its prefix: freeze it from here on
                     held[s] = pool.snapshot_slot(s)
-            lm.lm_apply(params, toks[:, j:j + 1], cfg, states=pool.states,
-                        mode="decode")
+            with shd.use_mesh(mesh):
+                lm.lm_apply(params, shd.batch_rows(toks[:, j:j + 1], mesh),
+                            cfg, states=pool.states, mode="decode")
         for s, snap in held.items():
             pool.restore_slot(s, snap)
         return width
@@ -151,7 +159,8 @@ def make_replay(cfg):
     return replay
 
 
-def make_spec_round(cfg, scfg: SamplingConfig, *, draft_probs: bool = False):
+def make_spec_round(cfg, scfg: SamplingConfig, *, draft_probs: bool = False,
+                    mesh=None):
     """Verify, accept, roll back and advance in one call: the engine's
     speculative hot path.
 
@@ -168,10 +177,11 @@ def make_spec_round(cfg, scfg: SamplingConfig, *, draft_probs: bool = False):
     ``pool`` ends holding every slot's post-round state, in its own
     tensors.  ``active`` is a
     host bool array; ``tokens (slots, 1)`` and ``drafts (slots, k)`` are on
-    the pool's device.
+    the pool's device.  On ``mesh`` (the engine's) the pool holds DTensors
+    and every rank returns the same host values.
     """
-    verify = make_verify(cfg, scfg, draft_probs=draft_probs)
-    replay = make_replay(cfg)
+    verify = make_verify(cfg, scfg, draft_probs=draft_probs, mesh=mesh)
+    replay = make_replay(cfg, mesh=mesh)
 
     def round_fn(params, pool, tokens, active, drafts, generator, q=None):
         k = drafts.shape[1]

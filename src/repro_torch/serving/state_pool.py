@@ -14,7 +14,10 @@ On a mesh (``mesh=`` and a placements list, one per leaf, from
 template that every rank builds alike.  A slot then lives on the ranks
 whose block of the slot axis holds it: ``write_slot`` and ``reset_slot``
 touch only those local blocks, ``read_slot`` gathers the slot axis, and
-``finite_mask`` reduces each rank's flags with one all-reduce.
+``finite_mask`` reduces each rank's flags with one all-reduce.  A host
+snapshot (``snapshot_slot(host=True)``) is the slot's whole state, the
+same on every rank, and restores onto any mesh's layout (the reference's
+``restore_slot`` onto the pool's current shardings).
 """
 
 from __future__ import annotations
@@ -198,10 +201,16 @@ class StatePool:
         snap = self.read_slot(slot)
         if not host:
             return snap
-        # sync-point: host-RAM state snapshot
-        return tree_map(lambda x: x.cpu(), snap)
+        from ..distributed.sharding import full
+
+        # sync-point: host-RAM state snapshot (on a mesh the whole state,
+        # gathered from every rank's block, the same on every rank)
+        return tree_map(lambda x: full(x).cpu(), snap)
 
     def restore_slot(self, slot: int, snapshot) -> None:
         """Roll ``slot`` back to ``snapshot`` (from ``snapshot_slot``, on the
-        device or the host): one copy per leaf, other slots untouched."""
+        device or the host): one copy per leaf, other slots untouched.  A
+        host snapshot is a whole state, so it restores onto the pool's own
+        layout, whatever mesh it was taken on: each rank copies in its
+        block."""
         self.write_slot(slot, snapshot)

@@ -42,6 +42,17 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_guard_covers_the_mesh_modules():
+    """The distributed modules and the remat policy are among the files
+    the guard reads."""
+    names = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES
+             if "src" in p.parts}
+    for mod in ("distributed/compression.py", "distributed/pipeline_par.py",
+                "distributed/shard_ops.py", "distributed/sharding.py",
+                "models/remat.py", "launch/dryrun.py"):
+        assert f"repro_torch/{mod}" in names, mod
+
+
 def test_guard_sees_the_forms_it_forbids(tmp_path):
     f = tmp_path / "x.py"
     f.write_text("import jax.numpy as jnp\nfrom repro.models import lm\n"

@@ -223,10 +223,18 @@ def test_multipod_mesh_axes_and_dryrun_cli(tmp_path):
 
 
 def test_dryrun_refuses_unported_families():
-    from repro_torch.launch import dryrun
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        dryrun.lower_cell("qwen3-moe-30b-a3b", "train_4k", None,
-                          reduced=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        dryrun.lower_cell("rwkv6-7b", "decode_32k", None, reduced=True)
+    """Every family has its sharded forward, so the dry run refuses none:
+    an MoE cell and an RWKV-6 cell lower through the CLI on a fake 2 x 2
+    mesh, the MoE one all-gathering its experts' outputs."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, mixer in (("qwen3-moe-30b-a3b", "hla2"), ("rwkv6-7b", None)):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", "decode_32k", "--mesh", "2x2", "--reduced"]
+            + (["--mixer", mixer] if mixer else []),
+            capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        res = json.loads(proc.stdout[:proc.stdout.rindex("}") + 1])
+        assert res["memory"]["peak_bytes"] > 0
+        if arch.startswith("qwen3"):
+            assert res["collectives"]["counts"]["all_gather"] > 0
