@@ -238,7 +238,8 @@ def main(argv=None):
     engine.reset_breaker()  # warmup zero-acceptance must not leak
     sink = None
     if args.events_out:
-        sink = JsonlSink(args.events_out)
+        sink = JsonlSink(args.events_out,
+                         epoch_offset_ns=engine.obs.tracer.epoch_offset_ns)
         engine.obs.attach(sink)
     # attach the fault plan after the warmup, so hit counts start at the
     # measured traffic
@@ -256,13 +257,17 @@ def main(argv=None):
     # decode-block tokens against decode wall time (non-ok results may
     # have produced no tokens at all)
     decode_toks = max(gen - len(results), 0)
-    ttft = engine.obs.registry.get("serving_ttft_seconds")
-    p50 = ttft.quantile(0.5) or 0.0
-    p99 = ttft.quantile(0.99) or 0.0
+    reg = engine.obs.registry
+    # submission -> first token, and the part of it spent queued
+    ttft, wait = (tuple(1e3 * (reg.get(name).quantile(q) or 0.0)
+                        for q in (0.5, 0.99))
+                  for name in ("serving_ttft_seconds",
+                               "sched_queue_wait_seconds"))
     decode_tps = decode_toks / st["decode_s"] if st["decode_s"] else 0.0
     print(
         f"[serve] {len(results)} requests, {gen} generated tokens in "
-        f"{dt:.2f}s | TTFT p50 {1e3 * p50:.1f}ms p99 {1e3 * p99:.1f}ms "
+        f"{dt:.2f}s | TTFT p50 {ttft[0]:.1f}ms p99 {ttft[1]:.1f}ms "
+        f"(queued p50 {wait[0]:.1f}ms p99 {wait[1]:.1f}ms) "
         f"| decode {decode_tps:.1f} tok/s | "
         f"prefill {st['prompt_tokens'] / max(st['prefill_s'], 1e-9):.1f} "
         "tok/s"

@@ -152,7 +152,8 @@ def main(argv=None):
     obs = Obs()
     sink = None
     if args.events_out:
-        sink = JsonlSink(args.events_out)
+        sink = JsonlSink(args.events_out,
+                         epoch_offset_ns=obs.tracer.epoch_offset_ns)
         obs.attach(sink)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     try:

@@ -227,9 +227,10 @@ def profile_capture(profile_dir, obs=None):
     ``profile_dir`` is falsy.  Yields the profiler (None when off), so a
     caller can read ``key_averages()`` after the region.
 
-    Emits ``profile.start`` / ``profile.stop`` events (with wall-clock
-    ``wall_ns`` payloads) on ``obs`` so the captured timeline can be
-    correlated with the obs span stream.
+    Emits ``profile.start`` / ``profile.stop`` events on ``obs`` whose
+    ``wall_ns`` is the moment on the tracer's clock
+    (``perf_counter_ns() + Tracer.epoch_offset_ns``, the profiler's time
+    base), so the captured timeline lines up with the obs span stream.
     """
     if not profile_dir:
         yield None
@@ -245,13 +246,14 @@ def profile_capture(profile_dir, obs=None):
     prof.__enter__()
     if obs is not None:
         obs.event("profile.start", profile_dir=str(profile_dir),
-                  wall_ns=time.time_ns())
+                  wall_ns=time.perf_counter_ns() + obs.tracer.epoch_offset_ns)
     try:
         yield prof
     finally:
         if obs is not None:
             obs.event("profile.stop", profile_dir=str(profile_dir),
-                      wall_ns=time.time_ns())
+                      wall_ns=time.perf_counter_ns()
+                      + obs.tracer.epoch_offset_ns)
         prof.__exit__(None, None, None)
         prof.export_chrome_trace(os.path.join(str(profile_dir),
                                               "trace.json"))

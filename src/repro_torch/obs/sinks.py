@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import io
 import json
-import time
 from typing import Optional, TextIO
+
+from .trace import _epoch_offset_ns
 
 
 class JsonlSink:
@@ -28,7 +29,11 @@ class JsonlSink:
     monotonic ``ts`` fields to wall-clock time::
 
         {"kind": "header", "schema": "repro.obs.events/v1",
-         "epoch_offset": <time.time() - perf_counter()>}
+         "epoch_offset": <seconds>, "epoch_offset_ns": <nanoseconds>}
+
+    Pass the offset of the tracer that feeds the sink
+    (``epoch_offset_ns=obs.tracer.epoch_offset_ns``) so the log and the
+    profiler share one clock; without it the sink reads its own.
 
     ``emit`` is called on the tracer's hot path: one ``json.dumps`` and
     one buffered ``write`` per record, flushed on ``flush``/``close``
@@ -36,7 +41,8 @@ class JsonlSink:
     works).
     """
 
-    def __init__(self, path_or_file, flush_every: int = 64):
+    def __init__(self, path_or_file, flush_every: int = 64,
+                 epoch_offset_ns: Optional[int] = None):
         if isinstance(path_or_file, (str, bytes)):
             self._f: TextIO = open(path_or_file, "w")
             self._owns = True
@@ -45,9 +51,12 @@ class JsonlSink:
             self._owns = False
         self.flush_every = flush_every
         self._n = 0
+        if epoch_offset_ns is None:
+            epoch_offset_ns = _epoch_offset_ns()
         self.emit({
             "kind": "header", "schema": "repro.obs.events/v1",
-            "epoch_offset": time.time() - time.perf_counter(),
+            "epoch_offset": epoch_offset_ns / 1e9,
+            "epoch_offset_ns": epoch_offset_ns,
         })
 
     def emit(self, rec: dict) -> None:

@@ -39,8 +39,12 @@ the CI validator)::
      ...labels}
 
 ``ts`` is ``perf_counter``-relative (monotonic within a process, not an
-epoch) — events are for *ordering and duration*, wall-clock anchoring is
-the sink's job (``JsonlSink`` stamps an epoch offset in its header).
+epoch) — events are for *ordering and duration*.  One clock anchors them:
+each ``Tracer`` takes its ``perf_counter`` -> wall-clock offset once, at
+construction (``epoch_offset_ns``), and ``int(ts * 1e9) + epoch_offset_ns``
+is nanoseconds since the epoch, the base of ``torch.profiler``'s event
+times.  ``JsonlSink`` stamps the offset it is given in its header and
+``obs.perf.profile_capture`` maps its ``wall_ns`` payloads through it.
 """
 
 from __future__ import annotations
@@ -68,13 +72,26 @@ def _trace_annotation(enabled) -> Optional[type]:
     return record_function
 
 
+def _epoch_offset_ns() -> int:
+    """``time_ns() - perf_counter_ns()``, the wall clock read on both sides
+    of the ``perf_counter`` read."""
+    a = time.time_ns()
+    p = time.perf_counter_ns()
+    return (a + time.time_ns()) // 2 - p
+
+
 class Tracer:
-    """Bounded ring buffer of span/event records + write-through sinks."""
+    """Bounded ring buffer of span/event records + write-through sinks.
+
+    ``epoch_offset_ns``: the ``perf_counter`` -> wall-clock offset taken at
+    construction; a record's ``ts`` is ``int(ts * 1e9) + epoch_offset_ns``
+    nanoseconds since the epoch."""
 
     def __init__(self, ring: int = 4096, sinks=(), annotate="auto"):
         if ring < 1:
             raise ValueError(f"ring must be >= 1, got {ring}")
         self.ring_size = ring
+        self.epoch_offset_ns = _epoch_offset_ns()
         self._ring: collections.deque = collections.deque(maxlen=ring)
         self._sinks: List = list(sinks)
         self._seq = itertools.count()  # next() is atomic: thread-safe seq
@@ -99,8 +116,9 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, **labels):
         """Record a wall-clock interval; nests (``depth`` = enclosing
-        spans on this thread).  Exceptions propagate — the span is still
-        recorded, flagged ``error=True``."""
+        spans on this thread) and yields its start (``perf_counter``).
+        Exceptions propagate — the span is still recorded, flagged
+        ``error=True``."""
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
@@ -110,7 +128,7 @@ class Tracer:
         if ann is not None:
             ann.__enter__()
         try:
-            yield
+            yield t0
         except BaseException:
             self._close_span(name, t0, labels, len(stack) - 1, error=True)
             raise
@@ -126,6 +144,14 @@ class Tracer:
                "dur_s": time.perf_counter() - t0, "depth": depth}
         if error:
             rec["error"] = True
+        rec.update(labels)
+        self._record(rec)
+
+    def interval(self, name: str, t0: float, t1: float, **labels) -> None:
+        """Record a span timed elsewhere, from ``t0`` to ``t1``
+        (``perf_counter``): depth 0, no profiler range."""
+        rec = {"kind": "span", "name": name, "ts": t0, "dur_s": t1 - t0,
+               "depth": 0}
         rec.update(labels)
         self._record(rec)
 
@@ -172,32 +198,50 @@ class SpanTimer:
         self.t0 = time.perf_counter()
 
     def close(self, **extra) -> float:
-        dur = time.perf_counter() - self.t0
-        rec = {"kind": "span", "name": self.name, "ts": self.t0,
-               "dur_s": dur, "depth": 0}
-        rec.update(self.labels)
-        rec.update(extra)
-        self.tracer._record(rec)
-        return dur
+        t1 = time.perf_counter()
+        self.tracer.interval(self.name, self.t0, t1,
+                             **dict(self.labels, **extra))
+        return t1 - self.t0
 
 
 _NESTING_DOC: Dict[str, str] = {
-    # the span/event catalog each subsystem emits — kept here so the
-    # timeline module and the docs have one source of truth
-    "request.queued": "request entered run()'s pending queue",
+    # every span and event name the port emits, with where it nests;
+    # tests/test_torch_obs.py holds it to the names in the source
+    "request.queued": "request entered the scheduler's queue (submit)",
     "request.admitted": "slot assigned, prefill done, first token sampled",
-    "request.first_token": "TTFT endpoint (dur rides request.admitted)",
+    "request.first_token": "first token of a request (after its admission)",
     "request.done": "terminal: status in ok|error|timeout|cancelled",
+    "engine.queue_wait": "submit -> start of the request's engine.prefill "
+                         "(span, recorded at admission; rid)",
     "engine.prefill": "chunk-parallel admission prefill (span)",
+    "engine.prefill_dispatch": "engine.prefill's start through "
+                               "pool.write_slot: ids to the card, "
+                               "lm_prefill, sampling, flags (child span)",
+    "engine.prefill_sync": "engine.prefill's one host transfer "
+                           "(child span)",
     "engine.decode_block": "one step-locked decode block (span)",
+    "engine.decode_step": "one step of a decode block: lm_apply(decode), "
+                          "sampling, token select (child span)",
+    "engine.block_sync": "after a block's last step: token copy, finite "
+                         "mask, the block's one transfer (child span)",
     "engine.spec_round": "one draft->verify->accept round (span)",
+    "breaker.tripped": "speculative decoding fell back to plain blocks",
+    "stream.hook_error": "the streaming hook raised; streaming stops",
+    "cache.hit": "prefix cache lookup found a snapshot",
+    "cache.corrupt_dropped": "a cached snapshot failed its checksum",
+    "cache.evicted": "LRU eviction of a cached snapshot",
+    "sched.expired": "a queued request's deadline passed",
+    "sched.stall": "a sched.stall fault held admissions",
+    "sched.promote": "a queued request aged into a better class",
+    "server.start": "AsyncServer's drive loop started",
+    "server.drain": "AsyncServer stops taking requests and drains",
+    "server.stop": "AsyncServer's drive loop ended",
     "train.step": "one optimizer step (span)",
     "train.resumed": "checkpoint auto-resume on loop entry",
     "ckpt.save": "one checkpoint save (span, async thread)",
     "ckpt.restore": "one checkpoint restore (span)",
     "fault.fired": "a runtime.faults injection point fired",
-    "profile.start": "torch.profiler capture opened (perf.py; "
-                     "wall_ns correlates the profiler timeline)",
+    "profile.start": "torch.profiler capture opened (perf.py; wall_ns is "
+                     "the event's ts on the tracer's clock)",
     "profile.stop": "torch.profiler capture closed",
-    "bench.run": "one bench function in benchmarks/run.py (span)",
 }

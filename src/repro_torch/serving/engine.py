@@ -52,8 +52,16 @@ Twin of ``repro/serving/engine.py`` on the port's in-place state pool:
 * **Observability (``obs=``).**  Every number goes through one
   ``obs.Obs`` registry + tracer: the reference's metric names, spans
   (``engine.prefill``, ``engine.decode_block``, ``engine.spec_round``) and
-  request lifecycle events.  Timings are host wall clock taken at syncs
-  the engine already makes; observability adds no device round trip.
+  request lifecycle events.  The port's own: an admission's span is tiled
+  by ``engine.prefill_dispatch`` (issue) and ``engine.prefill_sync`` (its
+  one transfer), a block's by one ``engine.decode_step`` a step and
+  ``engine.block_sync``; ``engine.queue_wait`` (recorded at admission)
+  runs from ``submit`` to the admission's start.  ``serving_ttft_seconds``
+  runs from submission to the first token (the scheduler's
+  ``sched_queue_wait_seconds`` holds the part spent queued), and
+  ``serving_inter_token_seconds`` takes one ``(last - first) / (n - 1)``
+  a finished request.  Timings are host wall clock taken at syncs the
+  engine already makes; observability adds no device round trip.
   ``Engine.stats`` is the reference's dict view over the registry, with
   two keys of the port's own: ``decode_steps`` and ``spec_replay_steps``.
 
@@ -273,6 +281,9 @@ class Engine:
         self._slot_req: List[Optional[GenRequest]] = [None] * slots
         self._slot_out: List[List[int]] = [[] for _ in range(slots)]
         self._slot_ttft: List[float] = [0.0] * slots
+        # host times of each slot's first and latest committed tokens
+        self._slot_first_t: List[float] = [0.0] * slots
+        self._slot_last_t: List[float] = [0.0] * slots
         self._slot_scfg: List[SamplingConfig] = [sampling] * slots
         self._slot_deadline: List[float] = [math.inf] * slots
         self._enqueue_t: Dict[int, float] = {}
@@ -290,11 +301,11 @@ class Engine:
         self.obs = obs if obs is not None else Obs()
         m = self.obs
         self._m_ttft = m.histogram(
-            "serving_ttft_seconds", "admission -> first sampled token")
+            "serving_ttft_seconds", "submission -> first sampled token")
         self._m_itl = m.histogram(
             "serving_inter_token_seconds",
-            "decode block wall-clock / tokens stepped (one observation "
-            "per block/round — never per-token host timing)")
+            "per finished request: (last - first token) / (tokens - 1), "
+            "host times at the syncs that fetched them")
         self._m_prefill_s = m.counter(
             "serving_prefill_seconds_total", "wall-clock in admissions")
         self._m_decode_s = m.counter(
@@ -451,52 +462,15 @@ class Engine:
                 f"(engine={self.sampling}, request={scfg})")
         t0 = time.perf_counter()
         L = len(prompt)
-        hit_len = insert_at = 0
         with self.obs.span("engine.prefill", rid=req.rid, slot=slot,
-                           prompt_len=L):
-            self._raise_fault("engine.prefill")
-            ids = to_device(prompt[None], self.device)
-            done, carry = 0, None  # tokens already summarized into carry
-            if self.cache is not None:
-                self._bind_faults()  # cache.corrupt may fire in lookup
-                found = self.cache.lookup(prompt, max_prefix=L - 1)
-                if found is not None:
-                    hit_len, host_state = found
-                    done = hit_len
-                    # a whole host state: placed as the decode states
-                    carry = steps_mod.place_states(self.cfg, _to(
-                        host_state, self.device, non_blocking=True),
-                        self.mesh)
-                aligned = self.cache.aligned_len(L)
-                if aligned > done:
-                    # advance to the chunk-aligned boundary first, so its
-                    # state can be cached; both calls together cover the
-                    # prompt once
-                    with self._mesh_ctx():
-                        _, carry = lm.lm_prefill(
-                            self.params,
-                            shd.batch_rows(ids[:, done:aligned], self.mesh),
-                            self.cfg, states=carry)
-                    done = insert_at = aligned
-            with self._mesh_ctx():
-                last, states = lm.lm_prefill(
-                    self.params, shd.batch_rows(ids[:, done:], self.mesh),
-                    self.cfg, states=carry)
-            last = shd.full(last)
-            first = sample(last, self.gen, scfg)[0]
-            flags = [first,
-                     (all_finite(states) & last.isfinite().all()).long()]
-            if insert_at:
-                flags.append(all_finite(carry).long())
-                # the boundary state's host copy, queued before the sync
-                # below so it rides it (pinned memory when from the card);
-                # on a mesh the whole state, gathered from the ranks' blocks
-                snap = tree_map(lambda x: shd.full(x).to(
-                    "cpu", non_blocking=True, copy=True), carry)
-            self.pool.write_slot(slot, states)
-            # sync-point: admission TTFT endpoint (token + health flags, and
-            # the boundary snapshot queued before it)
-            got = torch.stack(flags).tolist()
+                           prompt_len=L) as t_prefill:
+            with self.obs.span("engine.prefill_dispatch"):
+                flags, first, hit_len, insert_at, snap = \
+                    self._prefill_dispatch(slot, prompt, scfg)
+            with self.obs.span("engine.prefill_sync"):
+                # sync-point: admission TTFT endpoint (token + health
+                # flags, and the boundary snapshot queued before it)
+                got = flags.tolist()
         first_tok = got[0]
         if not got[1]:
             self._m_quarantined.inc()
@@ -507,7 +481,8 @@ class Engine:
             # after the health gate: a poisoned boundary state never
             # becomes a cache entry
             self.cache.insert(prompt[:insert_at], snap)
-        ttft = time.perf_counter() - t0
+        t_first = time.perf_counter()
+        ttft = t_first - t0
         if hit_len:
             self._m_ttft_hit.observe(ttft)
             if self._prefill_s_per_tok is not None:
@@ -523,14 +498,20 @@ class Engine:
         self._slot_req[slot] = req
         self._slot_out[slot] = []
         self._slot_ttft[slot] = ttft
+        self._slot_first_t[slot] = t_first
         self._slot_scfg[slot] = scfg
-        t_start = self._enqueue_t.pop(req.rid, t0)
+        t_submit = self._enqueue_t.pop(req.rid, None)
+        if t_submit is not None:
+            self.obs.tracer.interval("engine.queue_wait", t_submit,
+                                     t_prefill, rid=req.rid)
+        else:  # admitted directly, never queued
+            t_submit = t0
         self._slot_deadline[slot] = (
-            t_start + req.deadline_s if req.deadline_s is not None
+            t_submit + req.deadline_s if req.deadline_s is not None
             else math.inf)
         self._m_prefill_s.inc(ttft)
         self._m_prompt_toks.inc(L)
-        self._m_ttft.observe(ttft)
+        self._m_ttft.observe(t_first - t_submit)
         self._m_slots.set(float(self.active.sum()))
         self.obs.event("request.admitted", rid=req.rid, slot=slot,
                        prompt_len=L, cached_prefix=hit_len)
@@ -538,7 +519,7 @@ class Engine:
                        ttft_s=round(ttft, 6))
         # the first token goes through the one commit path, so max_new=1 or
         # a first-token EOS finishes here
-        finished = self._commit(slot, [first_tok])
+        finished = self._commit(slot, [first_tok], t_first)
         if not finished and self.drafter is not None \
                 and self.breaker["state"] == "closed":
             try:
@@ -548,9 +529,61 @@ class Engine:
                 self._trip_breaker(f"drafter.admit failed: {e!r}")
         return first_tok
 
-    def _commit(self, slot: int, toks) -> bool:
+    def _prefill_dispatch(self, slot: int, prompt: np.ndarray,
+                          scfg: SamplingConfig):
+        """An admission's work up to its one sync: the prompt's ids to the
+        device, ``lm_prefill`` (a second call first where the cache
+        advances a carry to a boundary it will store), the first token,
+        the health flags, and the state's copy into ``slot``.  Returns
+        ``(flags, first, hit_len, insert_at, snap)``: the flags to fetch,
+        the first token on the device, the cached prefix resumed from, the
+        boundary to cache (0: none) and its host copy, queued."""
+        self._raise_fault("engine.prefill")
+        L = len(prompt)
+        hit_len = insert_at = 0
+        snap = None
+        ids = to_device(prompt[None], self.device)
+        done, carry = 0, None  # tokens already summarized into carry
+        if self.cache is not None:
+            self._bind_faults()  # cache.corrupt may fire in lookup
+            found = self.cache.lookup(prompt, max_prefix=L - 1)
+            if found is not None:
+                hit_len, host_state = found
+                done = hit_len
+                # a whole host state: placed as the decode states
+                carry = steps_mod.place_states(self.cfg, _to(
+                    host_state, self.device, non_blocking=True), self.mesh)
+            aligned = self.cache.aligned_len(L)
+            if aligned > done:
+                # advance to the chunk-aligned boundary first, so its state
+                # can be cached; both calls together cover the prompt once
+                with self._mesh_ctx():
+                    _, carry = lm.lm_prefill(
+                        self.params,
+                        shd.batch_rows(ids[:, done:aligned], self.mesh),
+                        self.cfg, states=carry)
+                done = insert_at = aligned
+        with self._mesh_ctx():
+            last, states = lm.lm_prefill(
+                self.params, shd.batch_rows(ids[:, done:], self.mesh),
+                self.cfg, states=carry)
+        last = shd.full(last)
+        first = sample(last, self.gen, scfg)[0]
+        flags = [first, (all_finite(states) & last.isfinite().all()).long()]
+        if insert_at:
+            flags.append(all_finite(carry).long())
+            # the boundary state's host copy, queued before the admission's
+            # sync so it rides it (pinned memory when from the card); on a
+            # mesh the whole state, gathered from the ranks' blocks
+            snap = tree_map(lambda x: shd.full(x).to(
+                "cpu", non_blocking=True, copy=True), carry)
+        self.pool.write_slot(slot, states)
+        return torch.stack(flags), first, hit_len, insert_at, snap
+
+    def _commit(self, slot: int, toks, at: float) -> bool:
         """Append tokens to ``slot``'s stream with max_new/eos truncation;
-        finish the slot when it stops.  Returns True when it finished."""
+        finish the slot when it stops.  ``at``: the host time the tokens
+        reached the host.  Returns True when it finished."""
         req = self._slot_req[slot]
         out = self._slot_out[slot]
         n_before = len(out)
@@ -559,6 +592,8 @@ class Engine:
                     req.eos_id is not None and out and out[-1] == req.eos_id):
                 break
             out.append(int(t))
+        if len(out) > n_before:
+            self._slot_last_t[slot] = at
         self._emit_stream(req.rid, out[n_before:], None)
         if len(out) >= req.max_new or (
                 req.eos_id is not None and req.eos_id in out):
@@ -589,6 +624,10 @@ class Engine:
             prompt_len=len(req.prompt), status=status, error=error)
         self._m_requests.inc(status=status)
         self._m_gen_toks.inc(len(out))
+        if len(out) > 1:
+            self._m_itl.observe((self._slot_last_t[slot]
+                                 - self._slot_first_t[slot])
+                                / (len(out) - 1))
         self.obs.event("request.done", rid=req.rid, status=status,
                        tokens=len(out),
                        ttft_s=round(self._slot_ttft[slot], 6))
@@ -696,37 +735,40 @@ class Engine:
             tok = self.tokens
             steps = []
             for _ in range(n_steps):
-                with self._mesh_ctx():
-                    logits, _, _ = lm.lm_apply(
-                        self.params, shd.batch_rows(tok, self.mesh), self.cfg,
-                        states=self.pool.states, mode="decode")
-                logits = shd.full(logits)
-                if sel is None:
-                    nxt = sample(logits[:, -1], self.gen, uniq[0])
-                else:
-                    cand = torch.stack([sample(logits[:, -1], self.gen, c)
-                                        for c in uniq])
-                    nxt = cand.gather(0, sel[None])[0]
-                tok = torch.where(active[:, None], nxt[:, None], tok)
-                steps.append(nxt)
-            self.tokens.copy_(tok)  # in place: the block donates its tokens
-            finite = self.pool.finite_mask()
-            # sync-point: the once-per-block transfer (tokens + quarantine
-            # flags); the span closes on it
-            host = torch.cat([torch.stack(steps), finite[None].long()]).cpu()
+                with self.obs.span("engine.decode_step"):
+                    with self._mesh_ctx():
+                        logits, _, _ = lm.lm_apply(
+                            self.params, shd.batch_rows(tok, self.mesh),
+                            self.cfg, states=self.pool.states,
+                            mode="decode")
+                    logits = shd.full(logits)
+                    if sel is None:
+                        nxt = sample(logits[:, -1], self.gen, uniq[0])
+                    else:
+                        cand = torch.stack([sample(logits[:, -1], self.gen,
+                                                   c) for c in uniq])
+                        nxt = cand.gather(0, sel[None])[0]
+                    tok = torch.where(active[:, None], nxt[:, None], tok)
+                    steps.append(nxt)
+            with self.obs.span("engine.block_sync"):
+                self.tokens.copy_(tok)  # in place: the block donates them
+                finite = self.pool.finite_mask()
+                # sync-point: the once-per-block transfer (tokens +
+                # quarantine flags); the span closes on it
+                host = torch.cat([torch.stack(steps),
+                                  finite[None].long()]).cpu()
         host = host.numpy()
         toks, finite_host = host[:-1], host[-1]
-        dt = time.perf_counter() - t0
-        self._m_decode_s.inc(dt)
+        t1 = time.perf_counter()
+        self._m_decode_s.inc(t1 - t0)
         self._m_decode_steps.inc(n_steps)
-        self._m_itl.observe(dt / n_steps)
         for s in range(self.pool.slots):
             if not self.active[s]:
                 continue
             if not finite_host[s]:
                 self._quarantine(s)
                 continue
-            self._commit(s, toks[:, s])
+            self._commit(s, toks[:, s], t1)
         self._sweep_deadlines()
 
     # -- circuit breaker (speculative -> plain fallback) --------------------
@@ -791,10 +833,9 @@ class Engine:
         except Exception as e:  # nothing was mutated: a plain block is exact
             self._trip_breaker(f"drafter crashed: {e!r}")
             return False
-        accepted, stepped = self._spec_round(slots_active, drafts, q)
-        dt = timer.close(accepted=accepted)
+        accepted = self._spec_round(slots_active, drafts, q)
+        timer.close(accepted=accepted)
         self._m_decode_s.inc(time.perf_counter() - t0)
-        self._m_itl.observe(dt / max(stepped, 1))
         if b["state"] == "half_open":
             if accepted > 0:
                 b.update(state="closed", zero_rounds=0, reason=None)
@@ -831,21 +872,21 @@ class Engine:
     def _spec_round(self, slots_active, drafts, q):
         """Verify the drafts of every active slot in one chunk-parallel
         pass, commit the accepted tokens, roll rejected continuations back
-        (``spec.verify.make_spec_round``).  Returns ``(accepted, stepped)``:
-        the accepted draft tokens (the breaker's health signal) and the
-        tokens the round advanced the healthy slots by.  A drafter exception
-        in ``commit`` trips the breaker here but loses no verified token."""
+        (``spec.verify.make_spec_round``).  Returns the accepted draft
+        tokens (the breaker's health signal).  A drafter exception in
+        ``commit`` trips the breaker here but loses no verified token."""
         k = self.spec.k
         drafts, q = self._full_width(slots_active, drafts, q)
         packed, finite, new_tokens, steps = self._spec_round_fn(
             self.params, self.pool, self.tokens, self.active, drafts,
             self.gen, q)
+        at = time.perf_counter()  # the round's transfers are done
         self.tokens.copy_(new_tokens)  # in place: the round donates them
         self._m_spec_rounds.inc()
         self._m_replay_steps.inc(steps)
         if steps:
             self._m_spec_replays.inc()  # the rollback ran
-        accepted = stepped = 0
+        accepted = 0
         for s in slots_active:
             if not finite[s]:
                 self._quarantine(s)
@@ -855,8 +896,7 @@ class Engine:
             self._m_spec_drafted.inc(k)
             self._m_spec_accepted.inc(m)
             accepted += m
-            stepped += m + 1
-            if self._commit(s, committed):
+            if self._commit(s, committed, at):
                 continue  # finished: its state is stale, the slot is free
             if self.breaker["state"] != "closed":
                 continue  # the drafter already failed: skip its bookkeeping
@@ -864,7 +904,7 @@ class Engine:
                 self.drafter.commit(s, committed)
             except Exception as e:
                 self._trip_breaker(f"drafter.commit failed: {e!r}")
-        return accepted, stepped
+        return accepted
 
     # -- drive loop ---------------------------------------------------------
 

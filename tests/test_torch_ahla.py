@@ -473,8 +473,8 @@ def test_serve_cli_with_ahla_on_cpu(capsys):
     out = capsys.readouterr().out
     assert re.search(
         r"\[serve\] 3 requests, 15 generated tokens in [\d.]+s \| TTFT p50 "
-        r"[\d.]+ms p99 [\d.]+ms \| decode [\d.]+ tok/s \| prefill [\d.]+ "
-        r"tok/s", out), out
+        r"[\d.]+ms p99 [\d.]+ms \(queued p50 [\d.]+ms p99 [\d.]+ms\) \| "
+        r"decode [\d.]+ tok/s \| prefill [\d.]+ tok/s", out), out
     assert "statuses: ok=3" in out
     assert all(len(r.tokens) == 5 for r in results)
 

@@ -11,13 +11,18 @@ metric names and label sets (the port adds exactly two counters,
 ``serving_decode_steps_total`` and ``serving_spec_replay_steps_total``),
 counter totals except wall-clock seconds, gauge values, histogram counts,
 and the sequence of every event record's (kind, name, rid, status).  The
-port's artifacts must pass both packages' validators.
+port's artifacts must pass both packages' validators.  What the port adds
+is held apart: the child spans that tile an admission and a decode block,
+each request's ``engine.queue_wait``, and ``serving_inter_token_seconds``
+taken once a finished request (the reference takes it once a block).
 """
 
 import collections
 import io
 import json
 import re
+import time
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -53,6 +58,7 @@ from repro_torch.obs import (
     terminal_events,
     write_metrics,
 )
+from repro_torch.obs.trace import _NESTING_DOC
 from repro_torch.obs.validate import (
     check_requests,
     counter_total,
@@ -66,6 +72,12 @@ from repro_torch.serving import Engine, GenRequest, PrefixCache, SpecConfig
 #: the port's counters beside the reference's metric names
 PORT_EXTRAS = {"serving_decode_steps_total",
                "serving_spec_replay_steps_total"}
+#: the port's spans beside the reference's: the children of an admission
+#: and of a decode block, and each admitted request's queue wait
+PORT_SPANS = {"engine.prefill_dispatch", "engine.prefill_sync",
+              "engine.decode_step", "engine.block_sync", "engine.queue_wait"}
+#: histograms whose observations the port takes otherwise
+PORT_OBSERVED = {"serving_inter_token_seconds"}
 
 
 @pytest.fixture(scope="module")
@@ -215,7 +227,7 @@ class TestTracer:
     def test_jsonl_write_through_roundtrip(self, tmp_path):
         path = str(tmp_path / "e.jsonl")
         t = Tracer(annotate=False)
-        sink = JsonlSink(path)
+        sink = JsonlSink(path, epoch_offset_ns=t.epoch_offset_ns)
         t.attach(sink)
         t.event("before.close", rid=1)
         with t.span("work", rid=1):
@@ -227,7 +239,8 @@ class TestTracer:
         with open(path) as f:
             header = json.loads(f.readline())
         assert header["schema"] == "repro.obs.events/v1"
-        assert "epoch_offset" in header
+        assert header["epoch_offset_ns"] == t.epoch_offset_ns
+        assert header["epoch_offset"] == t.epoch_offset_ns / 1e9
 
     def test_obs_reset_clears_both(self):
         obs = Obs(annotate=False)
@@ -336,12 +349,12 @@ def test_trace_metric_names_and_label_sets_match(trace):
 
 
 def test_trace_counters_gauges_and_histogram_counts_match(trace):
-    port, ref, _, _ = trace
+    port, ref, results, _ = trace
     got, want = _metrics(port), _metrics(ref)
     compared = collections.Counter()
     for name, entry in want.items():
-        if name.endswith("_seconds_total"):
-            continue  # wall clock
+        if name.endswith("_seconds_total") or name in PORT_OBSERVED:
+            continue  # wall clock; observed otherwise
         mine = {json.dumps(s["labels"], sort_keys=True): s
                 for s in got[name]["series"]}
         for s in entry["series"]:
@@ -364,6 +377,9 @@ def test_trace_counters_gauges_and_histogram_counts_match(trace):
                  "spec_replays", "breaker_trips")
     assert [port.stats[k] for k in spec_keys] == \
         [ref.stats[k] for k in spec_keys]
+    # one inter-token observation a request that streamed two tokens or more
+    itl = port.obs.registry.get("serving_inter_token_seconds")
+    assert itl.count() == sum(len(r.tokens) > 1 for r in results) > 0
 
 
 def test_trace_event_sequence_matches(trace):
@@ -371,7 +387,7 @@ def test_trace_event_sequence_matches(trace):
 
     def seq(eng):
         return [(e["kind"], e["name"], e.get("rid"), e.get("status"))
-                for e in eng.obs.events()]
+                for e in eng.obs.events() if e["name"] not in PORT_SPANS]
 
     assert seq(port) == seq(ref)
     names = {e["name"] for e in port.obs.events()}
@@ -443,6 +459,138 @@ def test_timeline_completeness_under_faults(model):
     spans = eng.obs.events(name="engine.decode_block")
     assert spans and all(s["dur_s"] > 0 for s in spans)
     assert eng.obs.registry.get("serving_ttft_seconds").count() == 3
+
+
+#: each parent span and the child spans that tile it
+TILES = {"engine.prefill": ("engine.prefill_dispatch", "engine.prefill_sync"),
+         "engine.decode_block": ("engine.decode_step", "engine.block_sync")}
+
+
+@pytest.fixture(scope="module")
+def served(model):
+    """A served batch with a prefix cache (its admissions take the carry
+    path too), submitted one by one with each submit's time bracketed:
+    ``(engine, results, {rid: (before, after)})``."""
+    eng = _engine(model, cache=PrefixCache(granularity=4))
+    reqs = _requests(model[2], lens=(5, 11, 7, 9, 6))
+    submitted = {}
+    for r in reqs:
+        a = time.perf_counter()
+        eng.submit(r)
+        submitted[r.rid] = (a, time.perf_counter())
+    while len(eng.scheduler) or eng.active.any():
+        eng._drive_tick()
+    return eng, [eng.results[r.rid] for r in reqs], submitted
+
+
+def test_serve_child_spans_tile_their_parents(served):
+    """Every admission's and decode block's child spans lie inside it,
+    one after another, and cover it to within 1% (or 0.2 ms); a block has
+    one ``engine.decode_step`` a step."""
+    eng, results, _ = served
+    spans = eng.obs.events(kind="span")
+    end = {id(s): s["ts"] + s["dur_s"] for s in spans}
+    for parent, names in TILES.items():
+        blocks = [s for s in spans if s["name"] == parent]
+        assert blocks
+        for p in blocks:
+            kids = sorted((s for s in spans if s["name"] in names
+                           and p["ts"] <= s["ts"] <= end[id(p)]),
+                          key=lambda s: s["ts"])
+            assert all(end[id(k)] <= end[id(p)] for k in kids)
+            assert all(end[id(a)] <= b["ts"] for a, b in zip(kids, kids[1:]))
+            assert all(k["depth"] == p["depth"] + 1 for k in kids)
+            want = [names[0]] * (p.get("steps") or 1) + [names[1]]
+            assert [k["name"] for k in kids] == want
+            covered = sum(k["dur_s"] for k in kids)
+            assert p["dur_s"] - covered <= max(0.01 * p["dur_s"], 2e-4), \
+                (parent, p["dur_s"], covered)
+            assert all(set(k) == {"kind", "name", "ts", "dur_s", "seq",
+                                  "depth"} for k in kids)  # no labels
+    assert len(eng.obs.events(name="engine.prefill")) == len(results)
+
+
+def test_serve_queue_wait_runs_from_submit_to_admission(served):
+    """One ``engine.queue_wait`` an admission, labelled with its rid alone,
+    from the request's submit to its ``engine.prefill``'s start; the
+    scheduler's queue wait and the registry's TTFT start at the same
+    submit."""
+    eng, results, submitted = served
+    waits = {e["rid"]: e for e in eng.obs.events(name="engine.queue_wait")}
+    prefills = {e["rid"]: e for e in eng.obs.events(name="engine.prefill")}
+    assert sorted(waits) == sorted(prefills) == sorted(submitted)
+    for rid, w in waits.items():
+        a, b = submitted[rid]
+        assert a <= w["ts"] <= b
+        assert w["ts"] + w["dur_s"] == pytest.approx(prefills[rid]["ts"],
+                                                     abs=1e-9)
+        assert set(w) == {"kind", "name", "ts", "dur_s", "seq", "depth",
+                          "rid"}
+    reg = eng.obs.registry
+    order = sorted(prefills, key=lambda rid: prefills[rid]["ts"])
+    # the scheduler's wait ends at its pop, just before the admission
+    sched = reg.get("sched_queue_wait_seconds").recent()
+    assert len(sched) == len(order)
+    assert all(0 <= q <= waits[rid]["dur_s"] for rid, q in zip(order, sched))
+    # submission -> first token: the wait, then the admission's span
+    for rid, ttft in zip(order, reg.get("serving_ttft_seconds").recent()):
+        assert ttft >= waits[rid]["dur_s"] + prefills[rid]["dur_s"]
+        assert ttft == pytest.approx(
+            waits[rid]["dur_s"] + eng.results[rid].ttft_s, abs=1e-3)
+
+
+def test_serve_inter_token_is_per_finished_request(served):
+    """``serving_inter_token_seconds``: one (last - first) / (n - 1) a
+    finished request, within its admission-to-done interval."""
+    eng, results, _ = served
+    itl = eng.obs.registry.get("serving_inter_token_seconds").recent()
+    assert len(itl) == len(results) and all(len(r.tokens) == 10
+                                            for r in results)
+    done = {e["rid"]: e["ts"] for e in eng.obs.events(name="request.done")}
+    prefill_end = {e["rid"]: e["ts"] + e["dur_s"]
+                   for e in eng.obs.events(name="engine.prefill")}
+    longest = max(done[r.rid] - prefill_end[r.rid] for r in results)
+    assert all(0 < x <= longest / 9 for x in itl)
+
+
+def test_span_catalog_lists_what_the_port_emits():
+    """``_NESTING_DOC`` holds exactly the span and event names the port's
+    source emits."""
+    src = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    pat = re.compile(r"\.(?:event|span|timer|interval)\(\s*\"([a-z_.]+)\"")
+    emitted = set()
+    for f in src.rglob("*.py"):
+        emitted |= set(pat.findall(f.read_text()))
+    assert emitted == set(_NESTING_DOC)
+
+
+def test_tracer_clock_maps_spans_onto_the_profiler(tmp_path):
+    """One clock: a span around ``torch.mm``, mapped through the tracer's
+    ``epoch_offset_ns``, encloses the profiler's ``aten::mm`` event to
+    within 100 us; ``profile_capture``'s ``wall_ns`` is its event's
+    ``ts`` on the same clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    obs = Obs(annotate=False)
+    a = torch.randn(128, 128)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.span("mm"):
+            torch.mm(a, a)
+    (rec,) = obs.events(name="mm")
+    t0 = int(rec["ts"] * 1e9) + obs.tracer.epoch_offset_ns
+    t1 = t0 + int(rec["dur_s"] * 1e9)
+    (mm,) = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == "aten::mm" and e.device_type() == DeviceType.CPU]
+    assert mm.start_ns() >= t0 - 100_000
+    assert mm.start_ns() + mm.duration_ns() <= t1 + 100_000
+    with profile_capture(str(tmp_path), obs=obs):
+        pass
+    marks = obs.events(kind="event")
+    assert [e["name"] for e in marks] == ["profile.start", "profile.stop"]
+    for e in marks:
+        lag = int(e["ts"] * 1e9) + obs.tracer.epoch_offset_ns - e["wall_ns"]
+        assert 0 <= lag < 1_000_000
 
 
 def test_stats_shim_compat(model):

@@ -656,8 +656,8 @@ def test_serve_cli_spec_on_cpu(capsys, drafter):
     out = capsys.readouterr().out
     assert re.search(
         r"\[serve\] 3 requests, 18 generated tokens in [\d.]+s \| TTFT p50 "
-        r"[\d.]+ms p99 [\d.]+ms \| decode [\d.]+ tok/s \| prefill [\d.]+ "
-        r"tok/s", out), out
+        r"[\d.]+ms p99 [\d.]+ms \(queued p50 [\d.]+ms p99 [\d.]+ms\) \| "
+        r"decode [\d.]+ tok/s \| prefill [\d.]+ tok/s", out), out
     assert re.search(r"\[serve\] spec: \d+ rounds, acceptance [\d.]+, \d+ "
                      r"rollbacks, [\d.]+ committed tok/round", out), out
     assert "statuses: ok=3" in out and "breaker_trips=" in out
