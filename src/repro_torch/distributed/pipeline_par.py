@@ -106,18 +106,18 @@ def pipelined_forward(layer_fn, stage_params, x_microbatches, mesh, *,
     each stage takes its ``L / S`` layers, and their gradient lands on that
     block alone.  ``x_microbatches`` is ``(M, mb, ...)``, the same on every
     rank.  Returns the ``(M, mb, ...)`` outputs, the same on every rank."""
-    from ..models.param import leaf_paths
+    from ..models.param import unstack
 
     group = mesh.get_group(axis_name)
     S = dist.get_world_size(group)
     stage = dist.get_rank(group)
     local = _local_layers(stage_params, S, stage)
-    n_layers = next(leaf_paths(local))[1].shape[0]
+    layers = unstack(local)
     M = x_microbatches.shape[0]
 
     def stage_apply(x):
-        for l in range(n_layers):
-            x = layer_fn(_index(local, l), x)
+        for p in layers:
+            x = layer_fn(p, x)
         return x
 
     buf = torch.zeros_like(x_microbatches[0])
@@ -134,9 +134,3 @@ def pipelined_forward(layer_fn, stage_params, x_microbatches, mesh, *,
         outputs = [torch.zeros_like(buf)] * M
     return _FromLast.apply(torch.stack(outputs), torch.stack(shifted),
                            group)
-
-
-def _index(tree, l):
-    if isinstance(tree, dict):
-        return {k: _index(v, l) for k, v in tree.items()}
-    return tree[l]

@@ -56,7 +56,7 @@ from .blocks import (
     rmsnorm_specs,
     unembed_apply,
 )
-from .param import Axes, Spec
+from .param import Axes, Spec, unstack
 from .state_tree import tree_map
 
 MODES = ("train", "prefill", "decode")
@@ -197,12 +197,6 @@ def lm_state_axes(cfg):
     return _stack_axes(layer_state_axes(cfg, layout[0][1]))
 
 
-def _layer(tree, l: int):
-    if isinstance(tree, dict):
-        return {k: _layer(v, l) for k, v in tree.items()}
-    return tree[l]
-
-
 def _block(p, x, cfg, op, use_moe, mix):
     """One layer.  ``mix(sub_params, h)`` runs the op and returns ``(y,
     state)``.  A self-contained op is the layer: ``mix`` runs on the
@@ -260,7 +254,7 @@ def _trunk(params, tokens, cfg, states, mode, positions=None,
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "decode" and states is None:
         raise ValueError("decode needs states")
-    layout, units = stack_layout(cfg)
+    layout, _ = stack_layout(cfg)
     hybrid = bool(cfg.group_size)
     dt = getattr(torch, cfg.dtype)
     x = embed_apply(params["embed"], tokens).to(dt)
@@ -281,11 +275,10 @@ def _trunk(params, tokens, cfg, states, mode, positions=None,
         states = lm_init_states(cfg, x.shape[0], x.device, max_len=n + 64)
     # under remat a unit's activations are recomputed in backward
     remat = remat_mod.active(cfg, mode)
-    stack = params["groups" if hybrid else "layers"]
+    layers = unstack(params["groups" if hybrid else "layers"])
     ins, outs = [], []  # each unit's per-position states in and out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l in range(units):
-        p = _layer(stack, l)
+    for l, p in enumerate(layers):
         st = None if states is None else tree_map(lambda s: s[l], states)
         st_in = [None if st is None else st[key] if hybrid else st
                  for key, _, _ in layout]

@@ -74,6 +74,18 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def unstack(tree) -> list:
+    """The per-layer trees of a nested dict whose leaves are stacked over
+    a leading layers axis; a layer's leaves are views of the stack.  Each
+    leaf is taken apart once (``unbind``), so backward stacks the layers'
+    gradients once; indexing each layer (``select``) would zero-fill the
+    whole stack and add it, once a layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        return [dict(zip(parts, layer)) for layer in zip(*parts.values())]
+    return tree.unbind(0)
+
+
 def param_count(specs) -> int:
     return sum(math.prod(s.shape) for _, s in leaf_paths(specs))
 

@@ -56,8 +56,8 @@ from .blocks import (
     sinusoidal_pos,
     unembed_apply,
 )
-from .lm import MODES, _layer, _stack, next_token_ce
-from .param import Axes, Spec
+from .lm import MODES, _stack, next_token_ce
+from .param import Axes, Spec, unstack
 from .state_tree import tree_map
 
 POS_ROWS = 4096  # the learned decoder position table
@@ -132,8 +132,7 @@ def whisper_encode(params, frames, cfg):
     x = frames.to(act) + sinusoidal_pos(ne, cfg.d_model, act,
                                         frames.device)[None]
     remat = remat_mod.active(cfg)
-    for l in range(cfg.enc_layers):
-        p = _layer(params["enc_layers"], l)
+    for p in unstack(params["enc_layers"]):
         x = remat_mod.run(_enc_layer, p, x, cfg, cfg=cfg) \
             if remat else _enc_layer(p, x, cfg)
     return layernorm_apply(params["enc_norm"], x, cfg.norm_eps)
@@ -194,8 +193,7 @@ def whisper_decode(params, tokens, enc_out, cfg, *, states=None,
     op = _self_op(cfg)
     remat = remat_mod.active(cfg, mode)
     outs = []
-    for l in range(cfg.n_layers):
-        p = _layer(params["dec_layers"], l)
+    for l, p in enumerate(unstack(params["dec_layers"])):
         st = None if states is None else tree_map(lambda s: s[l], states)
         args = (p, x, enc_out, st, cfg, op, mode, positions)
         x, new_self, ck, cv = remat_mod.run(_dec_layer, *args, cfg=cfg) \

@@ -45,10 +45,10 @@ from repro.models.param import is_spec
 from repro.models.param import param_count as ref_param_count
 from repro_torch.configs import get_config
 from repro_torch.distributed import steps
-from repro_torch.models import attention, lm, seq_op, whisper
+from repro_torch.models import attention, seq_op, whisper
 from repro_torch.models.blocks import sinusoidal_pos
 from repro_torch.models.param import from_jax_params, leaf_paths
-from repro_torch.models.param import param_count
+from repro_torch.models.param import param_count, unstack
 from repro_torch.models.state_tree import leaves
 
 MIXERS = ("softmax", "hla2", "ahla", "linattn")
@@ -149,8 +149,8 @@ def test_attention_paths_and_encoder_match_reference():
     x = rs.randn(B, 5, cfg.d_model).astype(np.float32)
     enc = jax.tree.map(lambda t: t[0], ref_params["enc_layers"])
     dec = jax.tree.map(lambda t: t[0], ref_params["dec_layers"])
-    t_enc = lm._layer(params["enc_layers"], 0)
-    t_dec = lm._layer(params["dec_layers"], 0)
+    t_enc = unstack(params["enc_layers"])[0]
+    t_dec = unstack(params["dec_layers"])[0]
     want, _ = ref_attn.attention_apply(enc["attn"], jnp.asarray(x), ref_cfg,
                                        causal=False, use_rope=False)
     got, cache = attention.attention_apply(
